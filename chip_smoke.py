@@ -6,10 +6,11 @@
 Runs from the root of a checkout and needs one Hopper card, ``nvcc`` and
 nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
 
-1. kernel phases: each hand-written kernel at the main path's shapes,
-   held against its plain PyTorch version (f32 from the same bf16 inputs,
-   TF32 off) and timed beside its bound, the plain version and one
-   PyTorch library call used only as a yardstick;
+1. kernel phases: each of the six hand-written kernels at the main
+   paths' shapes, held against its plain PyTorch version (f32 from the
+   same bf16 inputs, TF32 off) and timed beside its bound, the plain
+   version and one PyTorch library call used only as a yardstick (SDPA
+   and its backward, ``F.cross_entropy(x @ w)`` and its backward);
 2. scoring phase: ``LLAMA_BENCH`` (full width and depth, random weights
    from a seed, bf16) runs ``loss_fn`` with ``attention_impl="flash"``
    and ``ce_impl="fused"`` on 8 x 2049 tokens, then on a small batch the
@@ -17,16 +18,28 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    paths are held against the plain attention and CE paths;
 3. serving phase: a ``LlamaEngine`` answers 8 greedy requests, and the
    cached path's last logits are held against ``forward`` with flash
-   attention.
+   attention;
+4. training check: on 2 x 512 tokens, the gradients of every parameter
+   tensor and the loss of the kernel paths against the plain paths, at
+   ``LLAMA_BENCH`` in bf16 with remat;
+5. training phase: ``ray_tpu_torch.parallel`` ``create_train_state`` and
+   ``make_train_step`` train ``LLAMA_BENCH`` (bf16 parameters, remat,
+   flash + fused) with ``default_optimizer(1e-4, warmup_steps=10,
+   total_steps=1000)`` on the same 8 x 2049 batch every step: one warm-up
+   step, then 10 timed steps (step time, tokens/s, MFU against the dense
+   bf16 peak, peak memory, losses and grad norms).
 
 Each kernel's launch counter is set to 0 just before each main-path run
-(the scoring batches, the engine's requests) and read just after it,
-before any check runs; the counts go into the kernels line per path. The
-scoring path must launch both kernels. The serving path launches neither:
-like the JAX engine, its attention is the plain cached einsum.
-``--profile`` adds a ``torch.profiler`` breakdown of one scoring batch
-and of the serving run (whose printed times then carry the profiler's
-cost). The second-to-last line is the kernels' JSON record, the last line
+(the scoring batches, the engine's requests, the training steps) and read
+just after it, before any check runs; the counts go into the kernels line
+per path. The scoring path must launch the two forward kernels, the
+training path all six (per step: the flash forward twice per layer, once
+more in remat's recompute, each backward kernel once per layer, each CE
+kernel once). The serving path launches none: like the JAX engine, its
+attention is the plain cached einsum. ``--profile`` adds a
+``torch.profiler`` breakdown of one scoring batch, of the serving run
+(whose printed times then carry the profiler's cost) and of one training
+step, with the optimizer update's share of it. The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed; without a CUDA device it
 exits with 2 before doing anything.
@@ -67,6 +80,19 @@ HIDDEN_ROW_RTOL = 5e-2
 NLL_ATOL = 1.5e-1
 # Cached-vs-full last logits, relative to the largest logit.
 LOGIT_RTOL = 5e-2
+# Backward kernels: p and dS (attention) or dlog (CE) are rounded to bf16
+# where the reference rounds and the outputs are bf16; the plain versions
+# run in f32. Each output row (dq, dk, dv, dx, dW along the last axis) is
+# held relative to its norm, floored at 1e-3 of the largest row norm for
+# rows that cancel to ~0 (causal dq row 0). Readings on an H100: 3.5e-3 to
+# 4.4e-3 (attention), 1.7e-3 and 2.2e-3 (CE).
+GRAD_ROW_RTOL = 1e-2
+# Training check, LLAMA_BENCH bf16 on 2 x 512 tokens with remat: per
+# parameter tensor ||g_kernels - g_plain|| / ||g_plain|| (bf16 through 16
+# layers twice), and the loss (relative). Each limit is a few times the
+# reading on an H100 (PERF.md): gradients 1.4e-2 to 3.2e-2, loss 1.3e-5.
+TRAIN_GRAD_RTOL = 1e-1
+TRAIN_LOSS_RTOL = 1e-4
 
 # The one card this script has been run on: NVIDIA H100 SXM. Dense bf16
 # tensor-core peak (FLOP/s) and memory rate (bytes/s) from its data sheet.
@@ -79,10 +105,13 @@ def fail_unless(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
-    """max over rows (last axis) of ||out - ref|| / ||ref||."""
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor, floor: float = 0.0) -> float:
+    """max over rows (last axis) of ||out - ref|| / ||ref||, each norm
+    floored at ``floor`` times the largest row norm."""
+    ref = ref.float()
+    norms = ref.norm(dim=-1)
     diff = (out.float() - ref).norm(dim=-1)
-    return (diff / ref.norm(dim=-1)).max().item()
+    return (diff / norms.clamp_min(floor * norms.max())).max().item()
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -114,7 +143,11 @@ def nbytes(*ts) -> int:
 # kernel-name fragments of each class in a device-time breakdown
 KERNEL_CLASSES = (
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("fused_ce_fwd", ("ce_partial_kernel", "ce_combine_kernel")),
+    ("fused_ce_bwd_dx", ("ce_bwd_dx_kernel",)),
+    ("fused_ce_bwd_dw", ("ce_bwd_dw_kernel",)),
     ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
 )
 
@@ -166,6 +199,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ray_tpu_torch import parallel
     from ray_tpu_torch._native import build
     from ray_tpu_torch.llm import GenRequest, LlamaEngine
     from ray_tpu_torch.models import llama
@@ -193,6 +227,17 @@ def main(argv) -> int:
 
     fa = cuda_attention.flash_attention_fwd
     ce = cuda_ce.fused_ce_fwd
+    # name -> (wrapper with the launch counter, source, TPU kernel replaced)
+    kernels = {
+        "flash_attention_fwd": (fa, "flash_attention_fwd.cu", "ray_tpu/ops/pallas_attention.py:157"),
+        "flash_attention_bwd_dkv": (cuda_attention.flash_attention_bwd_dkv,
+                                    "flash_attention_bwd.cu", "ray_tpu/ops/pallas_attention.py:336"),
+        "flash_attention_bwd_dq": (cuda_attention.flash_attention_bwd_dq,
+                                   "flash_attention_bwd.cu", "ray_tpu/ops/pallas_attention.py:368"),
+        "fused_ce_fwd": (ce, "fused_ce_fwd.cu", "ray_tpu/ops/pallas_ce.py:109"),
+        "fused_ce_bwd_dx": (cuda_ce.fused_ce_bwd_dx, "fused_ce_bwd.cu", "ray_tpu/ops/pallas_ce.py:208"),
+        "fused_ce_bwd_dw": (cuda_ce.fused_ce_bwd_dw, "fused_ce_bwd.cu", "ray_tpu/ops/pallas_ce.py:229"),
+    }
     gen = torch.Generator(device=dev).manual_seed(0)
     record = {}
 
@@ -227,11 +272,60 @@ def main(argv) -> int:
               f"o max row-relative err {err_row:.3e}; "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}) -> {b_ms / ms:.1%} of bound")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib_ms)
+        fwd = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
 
-    record["flash_attention_fwd"] = attn_phase("scoring shape", 8, 2048, 2048, 16, 8, 128, True)
+        # backward: dK/dV and dQ kernels from the forward's o and lse
+        do = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+        delta = cuda_attention.attention_delta(o, do)
+        dkv = cuda_attention.flash_attention_bwd_dkv
+        dqk = cuda_attention.flash_attention_bwd_dq
+        dk, dv = dkv(q, k, v, do, lse, delta, causal=causal)
+        dq = dqk(q, k, v, do, lse, delta, causal=causal)
+        dof = do.float()
+        plain = dict(causal=causal)
+        rk, rv = cuda_attention.flash_attention_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, **plain)
+        rq = cuda_attention.flash_attention_bwd_dq_plain(qf, kf, vf, dof, lse, delta, **plain)
+        errs = {n: (row_rel_err(a, r, 1e-3), (a.float() - r).abs().max().item())
+                for n, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        for n, (e, a) in errs.items():
+            fail_unless(math.isfinite(a) and e <= GRAD_ROW_RTOL,
+                        f"{label}: {n} max row-relative err {e} > {GRAD_ROW_RTOL}")
+        del rk, rv, rq, dq, dk, dv
+        ms_kv = time_ms(lambda: dkv(q, k, v, do, lse, delta, causal=causal), 20)
+        ms_q = time_ms(lambda: dqk(q, k, v, do, lse, delta, causal=causal), 20)
+        plain_kv = time_ms(lambda: cuda_attention.flash_attention_bwd_dkv_plain(
+            qf, kf, vf, dof, lse, delta, **plain), 3, warmup=1)
+        plain_q = time_ms(lambda: cuda_attention.flash_attention_bwd_dq_plain(
+            qf, kf, vf, dof, lse, delta, **plain), 3, warmup=1)
+        del qf, kf, vf, dof
+        qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                          20)
+        del out
+        kv_out = nbytes(k, v)                      # dk, dv: k's and v's sizes
+        b_kv, by_kv = bound(8.0 * hd * pairs * B * H,
+                            nbytes(q, k, v, do, lse, delta) + kv_out, peak_flops, peak_bw)
+        b_q, by_q = bound(6.0 * hd * pairs * B * H,
+                          nbytes(q, k, v, do, lse, delta) + nbytes(q), peak_flops, peak_bw)
+        print(f"kernel flash_attention_bwd [{label}]: row-relative err "
+              + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
+              + f"; dkv {ms_kv:.4f} ms (plain {plain_kv:.4f} ms, bound {b_kv:.4f} ms {by_kv} "
+              f"-> {b_kv / ms_kv:.1%}), dq {ms_q:.4f} ms (plain {plain_q:.4f} ms, bound "
+              f"{b_q:.4f} ms {by_q} -> {b_q / ms_q:.1%}); sdpa backward {lib_bwd:.4f} ms "
+              f"(dq, dk, dv together)")
+        return fwd, (dict(max_abs_err=max(errs["dk"][1], errs["dv"][1]), ms=ms_kv,
+                          plain_ms=plain_kv, bound_ms=b_kv, bound_by=by_kv, library_ms=lib_bwd),
+                     dict(max_abs_err=errs["dq"][1], ms=ms_q, plain_ms=plain_q, bound_ms=b_q,
+                          bound_by=by_q, library_ms=lib_bwd))
+
+    (record["flash_attention_fwd"], (record["flash_attention_bwd_dkv"],
+                                     record["flash_attention_bwd_dq"])) = attn_phase(
+        "main-path shape", 8, 2048, 2048, 16, 8, 128, True)
     attn_phase("non-causal, T != S", 8, 2048, 3000, 16, 8, 128, False)
+    torch.cuda.empty_cache()
 
     N, D, V = 8 * 2048, 2048, 32000
     x = torch.randn(N, D, generator=gen, device=dev).bfloat16()
@@ -246,7 +340,6 @@ def main(argv) -> int:
     del rl, rt
     ms = time_ms(lambda: ce(x, w, t), 10)
     plain_ms = time_ms(lambda: cuda_ce.fused_ce_fwd_plain(xf, wf, t), 3, warmup=1)
-    del xf, wf
     tl = t.long()
     lib_ms = time_ms(lambda: F.cross_entropy(x @ w, tl, reduction="none"), 10)
     b_ms, b_by = bound(2.0 * N * D * V, nbytes(x, w, t, lse, tgt), peak_flops, peak_bw)
@@ -255,8 +348,54 @@ def main(argv) -> int:
           f"bound {b_ms:.4f} ms ({b_by}) -> {b_ms / ms:.1%} of bound")
     record["fused_ce_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms)
-    del x, w, t, tl, lse, tgt
+
+    # backward: dx and dW kernels, g = 1/N per row as masked_mean gives
+    g = torch.full((N,), 1.0 / N, device=dev)
+    dx = cuda_ce.fused_ce_bwd_dx(x, w, t, lse, g)
+    dw = cuda_ce.fused_ce_bwd_dw(x, w, t, lse, g)
+    rx = cuda_ce.fused_ce_bwd_dx_plain(xf, wf, t, lse, g)
+    err_x, abs_x = row_rel_err(dx, rx, 1e-3), (dx.float() - rx).abs().max().item()
+    del rx
+    rw = cuda_ce.fused_ce_bwd_dw_plain(xf, wf, t, lse, g)
+    err_w, abs_w = row_rel_err(dw, rw, 1e-3), (dw.float() - rw).abs().max().item()
+    del rw
+    for n, e, a in (("dx", err_x, abs_x), ("dW", err_w, abs_w)):
+        fail_unless(math.isfinite(a) and e <= GRAD_ROW_RTOL,
+                    f"fused_ce_bwd: {n} max row-relative err {e} > {GRAD_ROW_RTOL}")
+    ms_x = time_ms(lambda: cuda_ce.fused_ce_bwd_dx(x, w, t, lse, g), 5, warmup=1)
+    ms_w = time_ms(lambda: cuda_ce.fused_ce_bwd_dw(x, w, t, lse, g), 5, warmup=1)
+    plain_x = time_ms(lambda: cuda_ce.fused_ce_bwd_dx_plain(xf, wf, t, lse, g), 3, warmup=1)
+    plain_w = time_ms(lambda: cuda_ce.fused_ce_bwd_dw_plain(xf, wf, t, lse, g), 3, warmup=1)
+    del xf, wf
     torch.cuda.empty_cache()
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_loss = F.cross_entropy(xr @ wr, tl, reduction="none")
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_loss, (xr, wr), g, retain_graph=True), 5,
+                      warmup=1)
+    del lib_loss
+    b_x, by_x = bound(4.0 * N * D * V, nbytes(x, w, t, lse, g, dx), peak_flops, peak_bw)
+    b_w, by_w = bound(4.0 * N * D * V, nbytes(x, w, t, lse, g, dw), peak_flops, peak_bw)
+    print(f"kernel fused_ce_bwd N{N} D{D} V{V}: row-relative err dx {err_x:.3e} dW {err_w:.3e}; "
+          f"dx {ms_x:.4f} ms (plain {plain_x:.4f} ms, bound {b_x:.4f} ms {by_x} -> "
+          f"{b_x / ms_x:.1%}), dW {ms_w:.4f} ms (plain {plain_w:.4f} ms, bound {b_w:.4f} ms "
+          f"{by_w} -> {b_w / ms_w:.1%}); F.cross_entropy(x@w) backward {lib_bwd:.4f} ms "
+          f"(dx, dW together)")
+    record["fused_ce_bwd_dx"] = dict(max_abs_err=abs_x, ms=ms_x, plain_ms=plain_x, bound_ms=b_x,
+                                     bound_by=by_x, library_ms=lib_bwd)
+    record["fused_ce_bwd_dw"] = dict(max_abs_err=abs_w, ms=ms_w, plain_ms=plain_w, bound_ms=b_w,
+                                     bound_by=by_w, library_ms=lib_bwd)
+    del x, w, t, tl, lse, tgt, g, dx, dw, xr, wr
+    torch.cuda.empty_cache()
+
+    launches = {name: {} for name in kernels}
+
+    def zero():
+        for wrapper, _, _ in kernels.values():
+            wrapper.launches = 0
+
+    def count(path):
+        for name, (wrapper, _, _) in kernels.items():
+            launches[name][path] = wrapper.launches
 
     # ---------------- scoring phase (main path) ----------------
     cfg = dataclasses.replace(llama.LLAMA_BENCH, param_dtype=torch.bfloat16)
@@ -265,13 +404,8 @@ def main(argv) -> int:
     print(f"LLAMA_BENCH: {llama.param_count(cfg) / 1e9:.3f} B params, "
           f"{cfg.n_layers} layers, dim {cfg.dim}, bf16")
     tokens = torch.randint(0, cfg.vocab_size, (8, 2049), generator=gen, device=dev)
-    launches = {"flash_attention_fwd": {}, "fused_ce_fwd": {}}
 
-    def count(path):
-        launches["flash_attention_fwd"][path] = fa.launches
-        launches["fused_ce_fwd"][path] = ce.launches
-
-    fa.launches = ce.launches = 0
+    zero()
     times, losses = [], []
     with torch.inference_mode():
         for _ in range(3):
@@ -339,7 +473,7 @@ def main(argv) -> int:
                 first.setdefault(r.request_id, now)
         return n_steps, time.perf_counter() - t0
 
-    fa.launches = ce.launches = 0
+    zero()
     n_steps, total = device_breakdown("serving", serve) if profile else serve()
     count("serving")
     for r in reqs:
@@ -371,19 +505,107 @@ def main(argv) -> int:
           f"{err:.4f} (max |logit| {scale:.3f}); launches flash {fa.launches} "
           f"(a check, outside the main-path counts)")
 
-    kernels = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
-             replaces="ray_tpu/ops/pallas_attention.py:157",
-             launches=sum(launches["flash_attention_fwd"].values()),
-             launches_by_path=launches["flash_attention_fwd"], **record["flash_attention_fwd"]),
-        dict(name="fused_ce_fwd", route="cuda",
-             source="ray_tpu_torch/csrc/fused_ce_fwd.cu",
-             replaces="ray_tpu/ops/pallas_ce.py:109",
-             launches=sum(launches["fused_ce_fwd"].values()),
-             launches_by_path=launches["fused_ce_fwd"], **record["fused_ce_fwd"]),
+    del eng, reqs, cache, logits, params
+    torch.cuda.empty_cache()
+
+    # ---------------- training check ----------------
+    train_cfg = dataclasses.replace(cfg, remat=True)
+    train_fast = dataclasses.replace(train_cfg, attention_impl="flash", ce_impl="fused")
+    opt = parallel.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+    state = parallel.create_train_state(gen, lambda g: llama.init_params(g, train_cfg, dev),
+                                        opt, dev)
+    names = ["embed", *(f"blocks.{k}" for k in state.params["blocks"]), "final_norm", "lm_head"]
+    leaves = parallel.tree_leaves(state.params)
+    small = {"tokens": torch.randint(0, cfg.vocab_size, (2, 513), generator=gen, device=dev)}
+    lk = llama.loss_fn(state.params, small, train_fast)
+    gk = torch.autograd.grad(lk, leaves)
+    lp = llama.loss_fn(state.params, small, train_cfg)
+    gp = torch.autograd.grad(lp, leaves)
+    grad_errs = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                 for n, a, b in zip(names, gk, gp)}
+    err_loss = abs(lk.item() - lp.item()) / abs(lp.item())
+    del gk, gp, lk, lp
+    print(f"training check (2x512, LLAMA_BENCH bf16, remat), kernel paths vs plain paths: "
+          f"loss relative err {err_loss:.3e}; per-tensor gradient relative err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in grad_errs.items()))
+    fail_unless(err_loss <= TRAIN_LOSS_RTOL, f"training: loss relative err {err_loss}")
+    for n, e in grad_errs.items():
+        fail_unless(e <= TRAIN_GRAD_RTOL, f"training: {n} gradient relative err {e} > "
+                                          f"{TRAIN_GRAD_RTOL}")
+
+    # ---------------- training phase (main path) ----------------
+    train_step = parallel.make_train_step(
+        lambda prm, b: llama.loss_fn(prm, b, train_fast), opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 2049), generator=gen, device=dev)}
+    n_steps = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    state, m = train_step(state, batch)           # warm-up step (lr 0 at step 0)
+    metrics = [m]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, m = train_step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    count("training")
+    peak_mem = torch.cuda.max_memory_allocated()
+    per_step = {"flash_attention_fwd": 2 * train_cfg.n_layers,
+                "flash_attention_bwd_dkv": train_cfg.n_layers,
+                "flash_attention_bwd_dq": train_cfg.n_layers,
+                "fused_ce_fwd": 1, "fused_ce_bwd_dx": 1, "fused_ce_bwd_dw": 1}
+    for name, n in per_step.items():
+        fail_unless(launches[name]["training"] == n * (n_steps + 1),
+                    f"training launched {name} {launches[name]['training']} times, "
+                    f"expected {n} per step")
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    fail_unless(all(math.isfinite(v) for v in losses + gnorms),
+                f"training: loss or grad norm not finite: {losses} {gnorms}")
+    fail_unless(losses[-1] < losses[0], f"training: loss did not fall: {losses}")
+    step_s = dt / n_steps
+    tps = 8 * 2048 / step_s
+    mfu = tps * llama.flops_per_token(train_cfg, 2048) / peak_flops
+    print(f"training: LLAMA_BENCH bf16 params, remat, flash + fused CE, 8x2048 tokens per step; "
+          f"{step_s * 1e3:.2f} ms per step (mean of {n_steps} after a warm-up step), "
+          f"{tps:.0f} tokens/s, MFU {mfu:.2%} of {peak_flops / 1e12:.0f} TFLOP/s; peak memory "
+          f"{peak_mem / 2**30:.2f} GiB; launches per step "
+          + ", ".join(f"{k} {launches[k]['training'] // (n_steps + 1)}" for k in per_step))
+    print("training losses: " + " ".join(f"{v:.5f}" for v in losses))
+    print("training grad norms: " + " ".join(f"{v:.5f}" for v in gnorms))
+    if profile:
+        device_breakdown("training (one step)", lambda: train_step(state, batch))
+        # one more step, not profiled, with CUDA events around the update
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def timed_update(grads, opt_state, prm):
+            marks[0].record()
+            out = opt.update(grads, opt_state, prm)
+            marks[1].record()
+            return out
+
+        timed_step = parallel.make_train_step(
+            lambda prm, b: llama.loss_fn(prm, b, train_fast),
+            parallel.Optimizer(opt.init, timed_update, opt.learning_rate))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = timed_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms, opt_ms = (time.perf_counter() - t0) * 1e3, marks[0].elapsed_time(marks[1])
+        print(f"training optimizer (global norm + update): {opt_ms:.2f} ms between CUDA events "
+              f"of a {step_ms:.2f} ms step ({opt_ms / step_ms:.1%})")
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+
+    record_line = [
+        dict(name=name, route="cuda", source=f"ray_tpu_torch/csrc/{src}", replaces=replaces,
+             launches=sum(launches[name].values()), launches_by_path=launches[name],
+             **record[name])
+        for name, (_, src, replaces) in kernels.items()
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": record_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

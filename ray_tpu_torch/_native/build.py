@@ -52,6 +52,24 @@ SIGNATURES: Dict[str, List] = {
         _P, _P, _P, _P, _P, _P,             # x, w, targets, partial, lse, tgt
         _I, _I, _I, _I, _I, _P,             # N, D, V, splits, tiles/split, stream
     ],
+    "rtt_flash_attention_bwd_dkv": [
+        _P, _P, _P, _P, _P, _P, _P, _P,     # q, k, v, dout, lse, delta, dk, dv
+        _I, _I, _I, _I, _I, _I,             # B, S, T, H, KVH, hd
+        _P, _F, _I, _P,                     # strides (18 long long), scale, causal, stream
+    ],
+    "rtt_flash_attention_bwd_dq": [
+        _P, _P, _P, _P, _P, _P, _P,         # q, k, v, dout, lse, delta, dq
+        _I, _I, _I, _I, _I, _I,             # B, S, T, H, KVH, hd
+        _P, _F, _I, _P,                     # strides (18 long long), scale, causal, stream
+    ],
+    "rtt_fused_ce_bwd_dx": [
+        _P, _P, _P, _P, _P, _P, _P,         # x, w, targets, lse, g, scratch, dx
+        _I, _I, _I, _P,                     # N, D, V, stream
+    ],
+    "rtt_fused_ce_bwd_dw": [
+        _P, _P, _P, _P, _P, _P, _P,         # x, w, targets, lse, g, scratch, dw
+        _I, _I, _I, _P,                     # N, D, V, stream
+    ],
 }
 
 _lock = threading.Lock()

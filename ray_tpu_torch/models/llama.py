@@ -1,6 +1,6 @@
 """Llama-family decoder-only transformer, PyTorch port of
-``ray_tpu/models/llama.py`` (the inference half: forward, forward-only
-scoring and the KV-cache path).
+``ray_tpu/models/llama.py``: forward, the training loss and its
+gradients, and the KV-cache path.
 
 Same architecture and the same cast points as the reference:
 - parameters are a dict of tensors with **stacked layers** (leading
@@ -17,8 +17,12 @@ Same architecture and the same cast points as the reference:
   (``ops/attention.py``); ``ce_impl="fused"`` routes the lm-head
   projection and softmax-CE to the fused kernel (``ops/cuda_ce.py``).
 
-``remat`` is kept in the config for the training slice; it has no effect
-in a forward-only path, which saves no activations for a backward pass.
+``remat``: when set and grad is enabled, each block runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps
+only the block's input and recomputes the rest in the backward pass: the
+counterpart of ``jax.checkpoint(policy=nothing_saveable)`` at
+``ray_tpu/models/llama.py:315-319``. Under ``torch.inference_mode``
+(scoring, serving) grad is off and nothing changes.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._private.device import DeviceLike, resolve_device
 
@@ -231,8 +236,13 @@ def block_fn(config: LlamaConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor
     return _mlp_sublayer(config, x, layer)
 
 
-def _layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {name: w[i] for name, w in blocks.items()}
+def _layers(blocks: Dict[str, torch.Tensor]):
+    """Every layer's weights as views of the stacked tensors. ``unbind``
+    makes one view per layer in one op, so its backward stacks the layer
+    gradients once; indexing layer by layer would add a full-size zero
+    gradient per layer."""
+    names = list(blocks)
+    return [dict(zip(names, ws)) for ws in zip(*(blocks[n].unbind(0) for n in names))]
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
@@ -243,8 +253,12 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     S = tokens.shape[1]
     x = params["embed"].to(c.dtype)[tokens.long()]
     cos, sin = rope_table(c, S, device=x.device)
-    for i in range(c.n_layers):
-        x = block_fn(c, x, _layer(params["blocks"], i), cos, sin)
+    remat = c.remat and torch.is_grad_enabled()
+    for layer in _layers(params["blocks"]):
+        if remat:
+            x = checkpoint(block_fn, c, x, layer, cos, sin, use_reentrant=False)
+        else:
+            x = block_fn(c, x, layer, cos, sin)
     return rms_norm(x, params["final_norm"], c.norm_eps)
 
 
@@ -391,8 +405,7 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     cos, sin = cos_full[pos], sin_full[pos]                      # (B, T, hd/2)
     rows = torch.arange(B, device=dev)[:, None]
 
-    for i in range(c.n_layers):
-        layer = _layer(params["blocks"], i)
+    for i, layer in enumerate(_layers(params["blocks"])):
         h = rms_norm(x, layer["attn_norm"], c.norm_eps)
         q, k, v = _qkv(c, h, layer)
         q = apply_rope(q, cos, sin)

@@ -14,6 +14,9 @@ the device of the tensors and nothing else:
   ``init_attention_state`` and ``finalize_attention_state``, which the
   ring attention of a later slice reuses.
 
+The backward follows the same rule: the dK/dV and dQ kernels for a CUDA
+tensor, their plain versions for a CPU tensor.
+
 The JAX dispatch falls back to the blockwise path when the kernel raises
 ``NotImplementedError``; the port has no such fallback.
 """
@@ -86,23 +89,39 @@ def finalize_attention_state(acc, l):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """Forward and FlashAttention-2 backward; the residuals are those of
+    ``pallas_attention.py`` ``_flash_fwd`` (:407): q, k, v, o and lse."""
+
     @staticmethod
     def forward(ctx, q, k, v, causal):
         from .cuda_attention import flash_attention_fwd, flash_attention_plain
 
         if q.device.type == "cuda":
-            o, _ = flash_attention_fwd(q, k, v, causal=causal)
+            o, lse = flash_attention_fwd(q, k, v, causal=causal)
         elif q.device.type == "cpu":
-            o, _ = flash_attention_plain(q, k, v, causal=causal)
+            o, lse = flash_attention_plain(q, k, v, causal=causal)
         else:
             raise ValueError(f"flash_attention: unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "flash_attention backward belongs to the training slice "
-            "(the dK/dV and dQ kernels are not ported yet)")
+        from .cuda_attention import flash_attention_bwd, flash_attention_bwd_plain
+
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.device.type == "cuda":
+            # the kernels read dO through strides but need its last dim
+            # contiguous; autograd may hand over any layout
+            if do.stride(-1) != 1:
+                do = do.contiguous()
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal)
+        elif do.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=ctx.causal)
+        else:
+            raise ValueError(f"flash_attention: unsupported device {do.device}")
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

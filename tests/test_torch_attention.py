@@ -4,19 +4,22 @@ blockwise reference, on the same numpy inputs, on the CPU.
 
 Tolerance: atol 2e-5 in f32, as tests/test_pallas_attention.py holds the
 Pallas kernel against the blockwise path (different block order of the
-f32 sums)."""
+f32 sums); gradients atol/rtol 5e-5, the tolerance tests/
+test_pallas_attention.py holds the Pallas gradients to."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from ray_tpu.ops import attention as jattn
-from ray_tpu.ops.pallas_attention import _fwd, pallas_flash_attention
+from ray_tpu.ops.pallas_attention import _bwd, _fwd, pallas_flash_attention
 from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import cuda_attention
 
 ATOL = 2e-5
+GRAD_TOL = 5e-5
 
 
 def _inputs(seed, B, S, T, H, KVH, hd=128):
@@ -92,11 +95,59 @@ def test_blockwise_accum_masked_block_is_noop():
         atol=ATOL)
 
 
-def test_backward_is_not_ported():
-    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(4, 1, 64, 64, 2, 2))
-    out = tattn.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+@pytest.mark.parametrize("causal,kvh,S,T", CASES)
+def test_grads_match_pallas(causal, kvh, S, T):
+    """torch autograd through flash_attention (the plain backward on the
+    CPU) against jax.grad through the Pallas kernels in interpret mode,
+    with the loss sum(o * cos(o)) of tests/test_pallas_attention.py."""
+    q, k, v = _inputs(6, 2, S, T, 4, kvh)
+
+    def loss_pallas(q, k, v):
+        o = pallas_flash_attention(q, k, v, causal, block_q=128, block_kv=128)
+        return jnp.sum(o * jnp.cos(o))
+
+    ref = jax.grad(loss_pallas, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = tattn.flash_attention(tq, tk, tv, causal=causal)
+    (o * torch.cos(o)).sum().backward()
+    for name, ours, theirs in zip("qkv", (tq, tk, tv), ref):
+        np.testing.assert_allclose(ours.grad.numpy(), np.asarray(theirs),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal,kvh,S,T", [CASES[0], CASES[3], CASES[4]])
+def test_bwd_plain_matches_pallas_bwd(causal, kvh, S, T):
+    """The kernels' plain versions against the Pallas backward ``_bwd``,
+    given the same o, lse (lane 0 of the TPU layout) and dO."""
+    q, k, v = _inputs(7, 2, S, T, 4, kvh)
+    do = np.random.default_rng(8).standard_normal(q.shape, dtype=np.float32)
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)  # noqa: E731
+    o, lse = _fwd(tr(q), tr(k), tr(v), causal, 128, 128)
+    ref = _bwd(tr(q), tr(k), tr(v), o, lse, tr(do), causal, 128, 128)
+    ours = cuda_attention.flash_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v)),
+        torch.from_numpy(np.array(o).transpose(0, 2, 1, 3)),
+        torch.from_numpy(np.array(lse)[..., 0]), torch.from_numpy(do), causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b).transpose(0, 2, 1, 3),
+                                   atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal,S,T,kvh", [(True, 100, 300, 2), (True, 300, 100, 1),
+                                            (False, 130, 77, 2)])
+def test_bwd_plain_ragged_matches_autograd(causal, S, T, kvh):
+    """At ragged S != T (which the Pallas kernels do not take), the plain
+    backward against autograd through the plain forward, at small blocks."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(9, 1, S, T, 4, kvh, hd=64))
+    o, lse = cuda_attention.flash_attention_plain(q, k, v, causal=causal, block_q=64,
+                                                  block_kv=64)
+    do = torch.from_numpy(np.random.default_rng(10).standard_normal(o.shape, dtype=np.float32))
+    ref = torch.autograd.grad(o, (q, k, v), do)
+    ours = cuda_attention.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                                    o.detach(), lse.detach(), do,
+                                                    causal=causal, block_q=64, block_kv=48)
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5, err_msg=name)
 
 
 def test_rejects_bad_gqa_split():
@@ -107,5 +158,10 @@ def test_rejects_bad_gqa_split():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_attention.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attention.flash_attention_bwd_dq(q, q, q, q, lse, lse)

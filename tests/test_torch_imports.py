@@ -9,7 +9,7 @@ import sys
 import pytest
 import torch
 
-from ray_tpu_torch import resolve_device
+from ray_tpu_torch import parallel, resolve_device
 from ray_tpu_torch.llm import LLMConfig, LlamaEngine
 from ray_tpu_torch.models import llama, params_from_numpy
 
@@ -27,6 +27,13 @@ params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
 logits = llama.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
 assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(logits).all())
 LlamaEngine(cfg, params, max_batch=1, max_seq=32, device="cpu").generate([1, 2], max_tokens=2)
+from ray_tpu_torch import parallel
+opt = parallel.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+state = parallel.create_train_state(torch.Generator().manual_seed(0),
+                                    lambda g: llama.init_params(g, cfg, "cpu"), opt, device="cpu")
+step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+state, m = step(state, {"tokens": torch.zeros((1, 9), dtype=torch.long)})
+assert bool(torch.isfinite(m["loss"]))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
 print("FOREIGN", bad)
@@ -59,6 +66,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     params = llama.init_params(torch.Generator(), cfg, device="cpu")
     with pytest.raises(RuntimeError):
         LlamaEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.create_train_state(torch.Generator(), lambda _: params,
+                                    parallel.default_optimizer())
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -3,8 +3,9 @@ ray_tpu/models/llama.py on LLAMA_TINY, from the same JAX-initialised
 parameters carried over with params_from_numpy, on the CPU.
 
 Tolerances (f32): logits atol 1e-4 (two layers of f32 products summed in
-another order); losses rtol 1e-5; bf16 cast-point checks allow one bf16
-rounding step (rtol 2**-7)."""
+another order); losses rtol 1e-5; gradients atol 1e-6 and rtol 1e-4 (the
+same products backward, for gradients of order 1e-3 to 1e-1); bf16
+cast-point checks allow one bf16 rounding step (rtol 2**-7)."""
 
 import dataclasses
 
@@ -20,6 +21,7 @@ from ray_tpu_torch.models import params_from_numpy
 
 LOGIT_ATOL = 1e-4
 BF16_RTOL = 2.0 ** -7
+GRAD_ATOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -158,3 +160,47 @@ def test_bf16_cast_points_match():
     out = tl.apply_rope(tx, tc, ts)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref), rtol=BF16_RTOL, atol=1e-6)
+
+
+def _torch_grads(tparams, batch, cfg):
+    leaves = [tparams["embed"], *tparams["blocks"].values(), tparams["final_norm"],
+              tparams["lm_head"]]
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    names = ["embed", *tparams["blocks"], "final_norm", "lm_head"]
+    tree = {"embed": leaves[0], "blocks": dict(zip(names[1:-2], leaves[1:-2])),
+            "final_norm": leaves[-2], "lm_head": leaves[-1]}
+    return names, torch.autograd.grad(tl.loss_fn(tree, batch, cfg), leaves)
+
+
+@pytest.mark.parametrize("attention_impl", ["xla", "flash"])
+@pytest.mark.parametrize("ce_impl", ["xla", "fused"])
+def test_grads_match(setup, attention_impl, ce_impl):
+    """Gradients of loss_fn (masked) against jax.grad(llama.loss_fn), f32;
+    the port's flash and fused paths run their plain backward on the CPU,
+    the reference's fused path its Pallas kernels in interpret mode."""
+    jcfg, tcfg, jparams, tparams, tokens = setup
+    mask = np.ones((2, 65), np.float32)
+    mask[:, -5:] = 0.0
+    kw = dict(ce_impl=ce_impl, attention_impl=attention_impl)
+    ref = jax.grad(jl.loss_fn)(jparams, {"tokens": jnp.asarray(tokens), "mask": jnp.asarray(mask)},
+                               dataclasses.replace(jcfg, **kw))
+    names, grads = _torch_grads(tparams, {"tokens": torch.from_numpy(tokens),
+                                          "mask": torch.from_numpy(mask)},
+                                dataclasses.replace(tcfg, **kw))
+    for name, g in zip(names, grads):
+        r = ref[name] if name in ref else ref["blocks"][name]
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("attention_impl,ce_impl", [("xla", "xla"), ("flash", "fused")])
+def test_remat_gives_the_same_grads(setup, attention_impl, ce_impl):
+    """remat (torch.utils.checkpoint per block) recomputes the same values:
+    the gradients with and without it are equal."""
+    _, tcfg, _, tparams, tokens = setup
+    batch = {"tokens": torch.from_numpy(tokens)}
+    cfg = dataclasses.replace(tcfg, attention_impl=attention_impl, ce_impl=ce_impl)
+    _, plain = _torch_grads(tparams, batch, dataclasses.replace(cfg, remat=False))
+    _, remat = _torch_grads(tparams, batch, dataclasses.replace(cfg, remat=True))
+    for a, b in zip(plain, remat):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-7, rtol=1e-6)
