@@ -6,11 +6,16 @@
 Runs from the root of a checkout and needs one Hopper card, ``nvcc`` and
 nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
 
-1. kernel phases: each of the six hand-written kernels at the main
+1. kernel phases: each of the seven hand-written kernels at the main
    paths' shapes, held against its plain PyTorch version (f32 from the
    same bf16 inputs, TF32 off) and timed beside its bound, the plain
    version and one PyTorch library call used only as a yardstick (SDPA
-   and its backward, ``F.cross_entropy(x @ w)`` and its backward);
+   and its backward, ``F.cross_entropy(x @ w)``); the CE backward's three
+   kernels (dlog, dx, dW) each on one chunk of rows, dx and dW beside the
+   one matmul each computes on that chunk (dlog has no such call), then
+   the whole chunked backward against its 6 N D V bound and
+   ``F.cross_entropy(x @ w)``'s backward, and two runs of it held bit for
+   bit;
 2. scoring phase: ``LLAMA_BENCH`` (full width and depth, random weights
    from a seed, bf16) runs ``loss_fn`` with ``attention_impl="flash"``
    and ``ce_impl="fused"`` on 8 x 2049 tokens, then on a small batch the
@@ -33,9 +38,10 @@ Each kernel's launch counter is set to 0 just before each main-path run
 (the scoring batches, the engine's requests, the training steps) and read
 just after it, before any check runs; the counts go into the kernels line
 per path. The scoring path must launch the two forward kernels, the
-training path all six (per step: the flash forward twice per layer, once
-more in remat's recompute, each backward kernel once per layer, each CE
-kernel once). The serving path launches none: like the JAX engine, its
+training path all seven (per step: the flash forward twice per layer,
+once more in remat's recompute, each attention backward kernel once per
+layer, the CE forward once, each CE backward kernel once per chunk of
+rows). The serving path launches none: like the JAX engine, its
 attention is the plain cached einsum. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
 (whose printed times then carry the profiler's cost) and of one training
@@ -146,6 +152,7 @@ KERNEL_CLASSES = (
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("fused_ce_fwd", ("ce_partial_kernel", "ce_combine_kernel")),
+    ("fused_ce_bwd_dlog", ("ce_bwd_dlog_kernel",)),
     ("fused_ce_bwd_dx", ("ce_bwd_dx_kernel",)),
     ("fused_ce_bwd_dw", ("ce_bwd_dw_kernel",)),
     ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
@@ -235,6 +242,8 @@ def main(argv) -> int:
         "flash_attention_bwd_dq": (cuda_attention.flash_attention_bwd_dq,
                                    "flash_attention_bwd.cu", "ray_tpu/ops/pallas_attention.py:368"),
         "fused_ce_fwd": (ce, "fused_ce_fwd.cu", "ray_tpu/ops/pallas_ce.py:109"),
+        "fused_ce_bwd_dlog": (cuda_ce.fused_ce_bwd_dlog, "fused_ce_bwd.cu",
+                              "ray_tpu/ops/pallas_ce.py:208"),
         "fused_ce_bwd_dx": (cuda_ce.fused_ce_bwd_dx, "fused_ce_bwd.cu", "ray_tpu/ops/pallas_ce.py:208"),
         "fused_ce_bwd_dw": (cuda_ce.fused_ce_bwd_dw, "fused_ce_bwd.cu", "ray_tpu/ops/pallas_ce.py:229"),
     }
@@ -349,42 +358,101 @@ def main(argv) -> int:
     record["fused_ce_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms)
 
-    # backward: dx and dW kernels, g = 1/N per row as masked_mean gives
+    # backward: per chunk of rows the dlog, dx and dW kernels; g = 1/N per
+    # row as masked_mean gives. Each kernel alone on the first chunk, then
+    # the whole backward (fused_ce_bwd, all chunks) against the plain one.
     g = torch.full((N,), 1.0 / N, device=dev)
-    dx = cuda_ce.fused_ce_bwd_dx(x, w, t, lse, g)
-    dw = cuda_ce.fused_ce_bwd_dw(x, w, t, lse, g)
-    rx = cuda_ce.fused_ce_bwd_dx_plain(xf, wf, t, lse, g)
+    rows = cuda_ce.chunk_rows(N, V, x.element_size())
+    n_chunks = -(-N // rows)
+    k_dlog, k_dx, k_dw = cuda_ce.fused_ce_bwd_dlog, cuda_ce.fused_ce_bwd_dx, cuda_ce.fused_ce_bwd_dw
+    xc, tc, lc, gc = x[:rows], t[:rows], lse[:rows], g[:rows]
+    xcf = xc.float()
+    dlog = k_dlog(xc, w, tc, lc, gc)
+    ref = cuda_ce.fused_ce_bwd_dlog_plain(xcf, wf, tc, lc, gc)
+    err_l, abs_l = row_rel_err(dlog, ref, 1e-3), (dlog.float() - ref).abs().max().item()
+    del ref
+    dlogf = dlog.float()
+    dxc = k_dx(dlog, w)
+    ref = cuda_ce.fused_ce_bwd_dx_plain(dlogf, wf)
+    err_cx = row_rel_err(dxc, ref, 1e-3)
+    del ref
+    acc = k_dw(xc, dlog, None, last=False)
+    ref = cuda_ce.fused_ce_bwd_dw_plain(xcf, dlogf, None, last=False)
+    err_cw = row_rel_err(acc, ref, 1e-3)
+    del ref, dlogf
+    for n, e in (("dlog", err_l), ("dx (one chunk)", err_cx), ("dW sum (one chunk)", err_cw)):
+        fail_unless(math.isfinite(e) and e <= GRAD_ROW_RTOL,
+                    f"fused_ce_bwd: {n} max row-relative err {e} > {GRAD_ROW_RTOL}")
+    dx, dw = cuda_ce.fused_ce_bwd(x, w, t, lse, g)
+    rx, rw = cuda_ce.fused_ce_bwd_plain(xf, wf, t, lse, g)
     err_x, abs_x = row_rel_err(dx, rx, 1e-3), (dx.float() - rx).abs().max().item()
-    del rx
-    rw = cuda_ce.fused_ce_bwd_dw_plain(xf, wf, t, lse, g)
     err_w, abs_w = row_rel_err(dw, rw, 1e-3), (dw.float() - rw).abs().max().item()
-    del rw
+    del rx, rw
     for n, e, a in (("dx", err_x, abs_x), ("dW", err_w, abs_w)):
         fail_unless(math.isfinite(a) and e <= GRAD_ROW_RTOL,
                     f"fused_ce_bwd: {n} max row-relative err {e} > {GRAD_ROW_RTOL}")
-    ms_x = time_ms(lambda: cuda_ce.fused_ce_bwd_dx(x, w, t, lse, g), 5, warmup=1)
-    ms_w = time_ms(lambda: cuda_ce.fused_ce_bwd_dw(x, w, t, lse, g), 5, warmup=1)
-    plain_x = time_ms(lambda: cuda_ce.fused_ce_bwd_dx_plain(xf, wf, t, lse, g), 3, warmup=1)
-    plain_w = time_ms(lambda: cuda_ce.fused_ce_bwd_dw_plain(xf, wf, t, lse, g), 3, warmup=1)
+    dx2, dw2 = cuda_ce.fused_ce_bwd(x, w, t, lse, g)
+    fail_unless(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+                "fused_ce_bwd: two runs gave different dx or dW")
+    del dx2, dw2
+    ms_l = time_ms(lambda: k_dlog(xc, w, tc, lc, gc, out=dlog), 10)
+    ms_x = time_ms(lambda: k_dx(dlog, w, out=dxc), 10)
+    ms_w = time_ms(lambda: k_dw(xc, dlog, acc, last=False), 10)   # a middle chunk
+    ms_bwd = time_ms(lambda: cuda_ce.fused_ce_bwd(x, w, t, lse, g), 5, warmup=1)
+    plain_l = time_ms(lambda: cuda_ce.fused_ce_bwd_dlog_plain(xcf, wf, tc, lc, gc), 3, warmup=1)
+    dlogf = dlog.float()
+    plain_x = time_ms(lambda: cuda_ce.fused_ce_bwd_dx_plain(dlogf, wf), 3, warmup=1)
+    plain_w = time_ms(lambda: cuda_ce.fused_ce_bwd_dw_plain(xcf, dlogf, None, last=False), 3,
+                      warmup=1)
+    del dlogf, xcf
+    plain_bwd = time_ms(lambda: cuda_ce.fused_ce_bwd_plain(xf, wf, t, lse, g), 3, warmup=1)
     del xf, wf
+    # one library call for each product on the same chunk operands: dx is
+    # dlog w^T in bf16 (f32 sums), the dW step adds x_c^T dlog into the f32
+    # sum; each result is held against the kernel's first
+    lib_sum = acc.clone()
+    lib_dx = torch.matmul(dlog, w.T)
+    fail_unless(row_rel_err(lib_dx, k_dx(dlog, w), 1e-3) <= GRAD_ROW_RTOL,
+                "fused_ce_bwd: torch.matmul(dlog, w.T) disagrees with the dx kernel")
+    lib_w = torch.addmm(lib_sum, xc.T, dlog, out_dtype=torch.float32)
+    fail_unless(row_rel_err(lib_w, k_dw(xc, dlog, lib_sum.clone(), last=False), 1e-3)
+                <= GRAD_ROW_RTOL,
+                "fused_ce_bwd: torch.addmm(sum, x_c.T, dlog) disagrees with the dW kernel")
+    del lib_dx, lib_w
+    lib_x = time_ms(lambda: torch.matmul(dlog, w.T), 10)
+    lib_w = time_ms(lambda: torch.addmm(lib_sum, xc.T, dlog, out_dtype=torch.float32), 10)
+    del lib_sum
     torch.cuda.empty_cache()
     xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
     lib_loss = F.cross_entropy(xr @ wr, tl, reduction="none")
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_loss, (xr, wr), g, retain_graph=True), 5,
                       warmup=1)
     del lib_loss
-    b_x, by_x = bound(4.0 * N * D * V, nbytes(x, w, t, lse, g, dx), peak_flops, peak_bw)
-    b_w, by_w = bound(4.0 * N * D * V, nbytes(x, w, t, lse, g, dw), peak_flops, peak_bw)
-    print(f"kernel fused_ce_bwd N{N} D{D} V{V}: row-relative err dx {err_x:.3e} dW {err_w:.3e}; "
-          f"dx {ms_x:.4f} ms (plain {plain_x:.4f} ms, bound {b_x:.4f} ms {by_x} -> "
-          f"{b_x / ms_x:.1%}), dW {ms_w:.4f} ms (plain {plain_w:.4f} ms, bound {b_w:.4f} ms "
-          f"{by_w} -> {b_w / ms_w:.1%}); F.cross_entropy(x@w) backward {lib_bwd:.4f} ms "
+    chunk_ops = 2.0 * rows * D * V
+    b_l, by_l = bound(chunk_ops, nbytes(xc, w, tc, lc, gc, dlog), peak_flops, peak_bw)
+    b_x, by_x = bound(chunk_ops, nbytes(dlog, w, dxc), peak_flops, peak_bw)
+    b_w, by_w = bound(chunk_ops, nbytes(xc, dlog) + 2 * nbytes(acc), peak_flops, peak_bw)
+    b_bwd, by_bwd = bound(6.0 * N * D * V, nbytes(x, w, t, lse, g, dx, dw), peak_flops, peak_bw)
+    print(f"kernel fused_ce_bwd N{N} D{D} V{V}, {n_chunks} chunks of {rows} rows: row-relative "
+          f"err dlog {err_l:.3e} (one chunk), dx {err_x:.3e} dW {err_w:.3e} (whole); two runs "
+          f"bit-identical; per chunk: dlog {ms_l:.4f} ms (plain {plain_l:.4f} ms, bound "
+          f"{b_l:.4f} ms {by_l} -> {b_l / ms_l:.1%}), dx {ms_x:.4f} ms (plain {plain_x:.4f} ms, "
+          f"bound {b_x:.4f} ms {by_x} -> {b_x / ms_x:.1%}; torch.matmul(dlog, w.T) "
+          f"{lib_x:.4f} ms), dW {ms_w:.4f} ms with the f32 sum read and written (plain "
+          f"{plain_w:.4f} ms, bound {b_w:.4f} ms {by_w} -> {b_w / ms_w:.1%}; "
+          f"torch.addmm(sum, x_c.T, dlog, out_dtype=f32) {lib_w:.4f} ms)")
+    print(f"kernel fused_ce_bwd whole backward (dlog + dx + dW, {n_chunks} chunks): "
+          f"{ms_bwd:.4f} ms (sum of per-chunk launches {n_chunks * (ms_l + ms_x + ms_w):.4f} ms), "
+          f"plain {plain_bwd:.4f} ms, bound {b_bwd:.4f} ms ({by_bwd}, 6 N D V) -> "
+          f"{b_bwd / ms_bwd:.1%} of bound; F.cross_entropy(x@w) backward {lib_bwd:.4f} ms "
           f"(dx, dW together)")
+    record["fused_ce_bwd_dlog"] = dict(max_abs_err=abs_l, ms=ms_l, plain_ms=plain_l, bound_ms=b_l,
+                                       bound_by=by_l, library_ms=None)
     record["fused_ce_bwd_dx"] = dict(max_abs_err=abs_x, ms=ms_x, plain_ms=plain_x, bound_ms=b_x,
-                                     bound_by=by_x, library_ms=lib_bwd)
+                                     bound_by=by_x, library_ms=lib_x)
     record["fused_ce_bwd_dw"] = dict(max_abs_err=abs_w, ms=ms_w, plain_ms=plain_w, bound_ms=b_w,
-                                     bound_by=by_w, library_ms=lib_bwd)
-    del x, w, t, tl, lse, tgt, g, dx, dw, xr, wr
+                                     bound_by=by_w, library_ms=lib_w)
+    del x, w, t, tl, lse, tgt, g, dx, dw, xr, wr, dlog, dxc, acc, xc, tc, lc, gc
     torch.cuda.empty_cache()
 
     launches = {name: {} for name in kernels}
@@ -552,10 +620,16 @@ def main(argv) -> int:
     dt = time.perf_counter() - t0
     count("training")
     peak_mem = torch.cuda.max_memory_allocated()
+    # The CE backward's chunks, from the contract and not from the code under
+    # test: bf16 dlog chunks of the most 128-row blocks that fit 256 MiB.
+    n_rows = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
+    ce_rows = 256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128
+    ce_chunks = -(-n_rows // ce_rows)
     per_step = {"flash_attention_fwd": 2 * train_cfg.n_layers,
                 "flash_attention_bwd_dkv": train_cfg.n_layers,
                 "flash_attention_bwd_dq": train_cfg.n_layers,
-                "fused_ce_fwd": 1, "fused_ce_bwd_dx": 1, "fused_ce_bwd_dw": 1}
+                "fused_ce_fwd": 1, "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
+                "fused_ce_bwd_dw": ce_chunks}
     for name, n in per_step.items():
         fail_unless(launches[name]["training"] == n * (n_steps + 1),
                     f"training launched {name} {launches[name]['training']} times, "

@@ -62,13 +62,17 @@ SIGNATURES: Dict[str, List] = {
         _I, _I, _I, _I, _I, _I,             # B, S, T, H, KVH, hd
         _P, _F, _I, _P,                     # strides (18 long long), scale, causal, stream
     ],
+    "rtt_fused_ce_bwd_dlog": [
+        _P, _P, _P, _P, _P, _P,             # x, w, targets, lse, g, dlog
+        _I, _I, _I, _P,                     # rows, D, V, stream
+    ],
     "rtt_fused_ce_bwd_dx": [
-        _P, _P, _P, _P, _P, _P, _P,         # x, w, targets, lse, g, scratch, dx
-        _I, _I, _I, _P,                     # N, D, V, stream
+        _P, _P, _P,                         # dlog, w, dx
+        _I, _I, _I, _P,                     # rows, D, V, stream
     ],
     "rtt_fused_ce_bwd_dw": [
-        _P, _P, _P, _P, _P, _P, _P,         # x, w, targets, lse, g, scratch, dw
-        _I, _I, _I, _P,                     # N, D, V, stream
+        _P, _P, _P, _P,                     # x, dlog, acc, dw
+        _I, _I, _I, _I, _I, _P,             # rows, D, V, accumulate, last, stream
     ],
 }
 

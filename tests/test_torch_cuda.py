@@ -14,7 +14,7 @@ average many values and are small); lse and the CE outputs differ only by
 the order of f32 sums, hence 1e-3. The backward kernels round p and dS
 (attention) or dlog (CE) to bf16 where the reference does and write bf16;
 their plain versions run in f32 from the same bf16 values, so each output
-row (dq, dk, dv, dx and dW along their last axis) is held at 1e-2
+row (dq, dk, dv, dlog, dx and dW along their last axis) is held at 1e-2
 relative to its norm (floored at 1e-3 of the largest row norm, for rows
 that cancel to ~0). The dK/dV kernel sums the GQA group in f32 and
 rounds once, as its plain version does (the reference rounds per head).
@@ -158,23 +158,88 @@ CE_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("N,D,V", CE_SHAPES + [(700, 264, 2104)])  # several rounds
-def test_fused_ce_bwd_kernels_match_plain(dev, N, D, V):
-    gen = torch.Generator(device=dev).manual_seed(9)
+CE_BWD_KERNELS = (cuda_ce.fused_ce_bwd_dlog, cuda_ce.fused_ce_bwd_dx, cuda_ce.fused_ce_bwd_dw)
+
+
+def _ce_bwd_problem(seed, N, D, V, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = _randn(gen, N, D, scale=0.5)
     w = _randn(gen, D, V, scale=0.05)
     t = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
     lse, _ = cuda_ce.fused_ce_fwd(x, w, t)
     g = torch.rand(N, generator=gen, device=dev) / N
-    before = (cuda_ce.fused_ce_bwd_dx.launches, cuda_ce.fused_ce_bwd_dw.launches)
+    return x, w, t, lse, g
+
+
+def _check_ce_bwd(x, w, t, lse, g):
+    N, D = x.shape
+    V = w.shape[1]
+    n_chunks = -(-N // cuda_ce.chunk_rows(N, V, 2))
+    before = [k.launches for k in CE_BWD_KERNELS]
     dx, dw = cuda_ce.fused_ce_bwd(x, w, t, lse, g)
-    assert (cuda_ce.fused_ce_bwd_dx.launches,
-            cuda_ce.fused_ce_bwd_dw.launches) == (before[0] + 1, before[1] + 1)
+    assert [k.launches - b for k, b in zip(CE_BWD_KERNELS, before)] == [n_chunks] * 3
     rx, rw = cuda_ce.fused_ce_bwd_plain(x.float(), w.float(), t, lse, g)
     torch.cuda.synchronize()
     assert dx.shape == (N, D) and dw.shape == (D, V) and dx.dtype == dw.dtype == torch.bfloat16
     assert _row_rel_err(dx, rx) <= GRAD_ROW_RTOL
     assert _row_rel_err(dw, rw) <= GRAD_ROW_RTOL
+
+
+@pytest.mark.parametrize("N,D,V", CE_SHAPES + [(700, 264, 2104)])  # several tiles each way
+def test_fused_ce_bwd_kernels_match_plain(dev, N, D, V):
+    _check_ce_bwd(*_ce_bwd_problem(9, N, D, V, dev))
+
+
+def test_fused_ce_bwd_kernels_chunked_match_plain(dev, monkeypatch):
+    """A budget of 256 rows of dlog: chunks of 256, 256 and a ragged 188."""
+    monkeypatch.setattr(cuda_ce, "_DLOG_BUDGET", 256 * 2104 * 2)
+    assert cuda_ce.chunk_rows(700, 2104, 2) == 256
+    _check_ce_bwd(*_ce_bwd_problem(13, 700, 264, 2104, dev))
+
+
+def test_fused_ce_bwd_is_deterministic(dev, monkeypatch):
+    """Two runs of the chunked backward give the same bits."""
+    monkeypatch.setattr(cuda_ce, "_DLOG_BUDGET", 256 * 2104 * 2)
+    args = _ce_bwd_problem(14, 700, 264, 2104, dev)
+    dx1, dw1 = cuda_ce.fused_ce_bwd(*args)
+    dx2, dw2 = cuda_ce.fused_ce_bwd(*args)
+    assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
+
+
+@pytest.mark.parametrize("kernel", ["dlog", "dx", "dw"])
+def test_fused_ce_bwd_kernel_alone_one_tile(dev, kernel):
+    """Each CE backward kernel alone on one 128 x 256 output tile with two
+    K stages, against its plain version: the dlog kernel reads x K-major
+    and w MN-major, the dx kernel dlog and w K-major, the dW kernel x and
+    dlog MN-major. The dW kernel's three modes: start the f32 sum, add to
+    it, and round the last sum to bf16."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    if kernel == "dlog":
+        x = _randn(gen, 128, 128, scale=0.5)
+        w = _randn(gen, 128, 256, scale=0.05)
+        t = torch.randint(0, 256, (128,), generator=gen, device=dev, dtype=torch.int32)
+        lse, _ = cuda_ce.fused_ce_fwd_plain(x.float(), w.float(), t)
+        g = torch.rand(128, generator=gen, device=dev)
+        out = cuda_ce.fused_ce_bwd_dlog(x, w, t, lse, g)
+        ref = cuda_ce.fused_ce_bwd_dlog_plain(x.float(), w.float(), t, lse, g)
+        assert out.shape == (128, 256) and _row_rel_err(out, ref) <= GRAD_ROW_RTOL
+    elif kernel == "dx":
+        dlog = _randn(gen, 128, 128)
+        w = _randn(gen, 256, 128)
+        out = cuda_ce.fused_ce_bwd_dx(dlog, w)
+        ref = cuda_ce.fused_ce_bwd_dx_plain(dlog.float(), w.float())
+        assert out.shape == (128, 256) and _row_rel_err(out, ref) <= GRAD_ROW_RTOL
+    else:
+        x = _randn(gen, 128, 128)
+        dlog = _randn(gen, 128, 256)
+        acc = cuda_ce.fused_ce_bwd_dw(x, dlog, None, last=False)
+        ref = cuda_ce.fused_ce_bwd_dw_plain(x.float(), dlog.float(), None, last=False)
+        assert acc.dtype == torch.float32 and (acc - ref).abs().max().item() <= STAT_ATOL
+        assert cuda_ce.fused_ce_bwd_dw(x, dlog, acc, last=False) is acc
+        assert (acc - 2 * ref).abs().max().item() <= 2 * STAT_ATOL
+        out = cuda_ce.fused_ce_bwd_dw(x, dlog, acc, last=True)
+        assert out.shape == (128, 256) and out.dtype == torch.bfloat16
+        assert _row_rel_err(out, 3 * ref) <= GRAD_ROW_RTOL
 
 
 @pytest.mark.parametrize("N,D,V", CE_SHAPES)
@@ -280,8 +345,7 @@ def test_train_steps_on_card(dev):
     gen = torch.Generator(device=dev).manual_seed(12)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 129), generator=gen, device=dev)}
     kernels = (cuda_attention.flash_attention_fwd, cuda_attention.flash_attention_bwd_dkv,
-               cuda_attention.flash_attention_bwd_dq, cuda_ce.fused_ce_fwd,
-               cuda_ce.fused_ce_bwd_dx, cuda_ce.fused_ce_bwd_dw)
+               cuda_attention.flash_attention_bwd_dq, cuda_ce.fused_ce_fwd, *CE_BWD_KERNELS)
     for k in kernels:
         k.launches = 0
     first = [t.detach().clone() for t in parallel.tree_leaves(state.params)]
@@ -291,7 +355,8 @@ def test_train_steps_on_card(dev):
     state, m1 = step(state, batch)
     state, m2 = step(state, batch)
     torch.cuda.synchronize()
-    assert [k.launches for k in kernels] == [3 * 2 * cfg.n_layers] + [3 * cfg.n_layers] * 2 + [3] * 3
+    # 2 x 128 rows: one chunk of the CE backward per step
+    assert [k.launches for k in kernels] == [3 * 2 * cfg.n_layers] + [3 * cfg.n_layers] * 2 + [3] * 4
     assert not all(torch.equal(a, b.detach()) for a, b in
                    zip(after0, parallel.tree_leaves(state.params)))
     losses = [m["loss"].item() for m in (m0, m1, m2)]
