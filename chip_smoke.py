@@ -10,12 +10,14 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    paths' shapes, held against its plain PyTorch version (f32 from the
    same bf16 inputs, TF32 off) and timed beside its bound, the plain
    version and one PyTorch library call used only as a yardstick (SDPA
-   and its backward, ``F.cross_entropy(x @ w)``); the CE backward's three
-   kernels (dlog, dx, dW) each on one chunk of rows, dx and dW beside the
-   one matmul each computes on that chunk (dlog has no such call), then
+   and its backward, ``F.cross_entropy(x @ w)``); two runs of the
+   attention forward held bit for bit; the CE backward's three kernels
+   (dlog, dx, dW) each on one chunk of rows, dx and dW beside the one
+   matmul each computes on that chunk (dlog has no such call), then
    the whole chunked backward against its 6 N D V bound and
    ``F.cross_entropy(x @ w)``'s backward, and two runs of it held bit for
-   bit;
+   bit; a digest of the CE kernels' outputs, so that two trees' runs show
+   whether their bits agree;
 2. scoring phase: ``LLAMA_BENCH`` (full width and depth, random weights
    from a seed, bf16) runs ``loss_fn`` with ``attention_impl="flash"``
    and ``ce_impl="fused"`` on 8 x 2049 tokens, then on a small batch the
@@ -54,6 +56,7 @@ exits with 2 before doing anything.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -118,6 +121,14 @@ def row_rel_err(out: torch.Tensor, ref: torch.Tensor, floor: float = 0.0) -> flo
     norms = ref.norm(dim=-1)
     diff = (out.float() - ref).norm(dim=-1)
     return (diff / norms.clamp_min(floor * norms.max())).max().item()
+
+
+def digest(*tensors: torch.Tensor) -> str:
+    """First 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -256,6 +267,10 @@ def main(argv) -> int:
         k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, T, KVH, hd, generator=gen, device=dev).bfloat16()
         o, lse = fa(q, k, v, causal=causal)
+        o2, lse2 = fa(q, k, v, causal=causal)
+        fail_unless(torch.equal(o, o2) and torch.equal(lse, lse2),
+                    f"{label}: two runs of flash_attention_fwd gave different o or lse")
+        del o2, lse2
         qf, kf, vf = q.float(), k.float(), v.float()
         ro, rlse = cuda_attention.flash_attention_plain(qf, kf, vf, causal=causal)
         err = (o.float() - ro).abs().max().item()
@@ -278,7 +293,7 @@ def main(argv) -> int:
                            peak_flops, peak_bw)
         print(f"kernel flash_attention_fwd [{label}] B{B} S{S} T{T} H{H} KVH{KVH} hd{hd} "
               f"causal={causal}: max_abs_err o {err:.3e} lse {err_lse:.3e}, "
-              f"o max row-relative err {err_row:.3e}; "
+              f"o max row-relative err {err_row:.3e}, two runs bit-identical; "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}) -> {b_ms / ms:.1%} of bound")
         fwd = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -347,10 +362,10 @@ def main(argv) -> int:
     fail_unless(math.isfinite(err) and err <= STAT_ATOL,
                 f"fused_ce_fwd: max abs err {err} > {STAT_ATOL}")
     del rl, rt
-    ms = time_ms(lambda: ce(x, w, t), 10)
+    ms = time_ms(lambda: ce(x, w, t), 50)
     plain_ms = time_ms(lambda: cuda_ce.fused_ce_fwd_plain(xf, wf, t), 3, warmup=1)
     tl = t.long()
-    lib_ms = time_ms(lambda: F.cross_entropy(x @ w, tl, reduction="none"), 10)
+    lib_ms = time_ms(lambda: F.cross_entropy(x @ w, tl, reduction="none"), 50)
     b_ms, b_by = bound(2.0 * N * D * V, nbytes(x, w, t, lse, tgt), peak_flops, peak_bw)
     print(f"kernel fused_ce_fwd N{N} D{D} V{V}: max_abs_err {err:.3e}; {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, F.cross_entropy(x@w) {lib_ms:.4f} ms, "
@@ -395,6 +410,8 @@ def main(argv) -> int:
     fail_unless(torch.equal(dx, dx2) and torch.equal(dw, dw2),
                 "fused_ce_bwd: two runs gave different dx or dW")
     del dx2, dw2
+    print(f"digests: fused_ce_fwd lse+tgt {digest(lse, tgt)}, fused_ce_bwd_dlog (first chunk) "
+          f"{digest(dlog)}, fused_ce_bwd dx {digest(dx)} dW {digest(dw)}")
     ms_l = time_ms(lambda: k_dlog(xc, w, tc, lc, gc, out=dlog), 10)
     ms_x = time_ms(lambda: k_dx(dlog, w, out=dxc), 10)
     ms_w = time_ms(lambda: k_dw(xc, dlog, acc, last=False), 10)   # a middle chunk

@@ -50,7 +50,7 @@ SIGNATURES: Dict[str, List] = {
     ],
     "rtt_fused_ce_fwd": [
         _P, _P, _P, _P, _P, _P,             # x, w, targets, partial, lse, tgt
-        _I, _I, _I, _I, _I, _P,             # N, D, V, splits, tiles/split, stream
+        _I, _I, _I, _I, _P,                 # N, D, V, vocab tiles, stream
     ],
     "rtt_flash_attention_bwd_dkv": [
         _P, _P, _P, _P, _P, _P, _P, _P,     # q, k, v, dout, lse, delta, dk, dv

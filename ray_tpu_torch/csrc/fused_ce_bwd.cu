@@ -34,10 +34,11 @@
 // 128-byte-swizzled shared memory (no ldmatrix reloads per warp), 128 x 256
 // tiles give 85 FLOP per byte loaded into shared memory, a producer warp
 // keeps TMA loads of 4 stages in flight, and every kernel walks its tiles
-// in a persistent loop, M fastest, so the CTAs in flight share their
-// operand tiles in L2. The dW sum costs an f32 read and write of D x V per
-// chunk after the first (~0.5 ms in all at the training shape, 4 chunks);
-// dx keeps no f32 copy. What is left between these kernels and the bound
+// in a persistent loop, M fastest within the core's raster groups of 32
+// row tiles (at the training shape each kernel's M is one group), so the
+// CTAs in flight share their operand tiles in L2. The dW sum costs an f32
+// read and write of D x V per chunk after the first (~0.5 ms in all at the
+// training shape, 4 chunks); dx keeps no f32 copy. What is left between these kernels and the bound
 // is mostly each tile's epilogue, which no product overlaps (dlog 4000
 // tiles and dW 2000 per chunk at the training shape, dx 256).
 // Deterministic: no atomics, every output element has one owner, chunks
@@ -79,8 +80,8 @@ struct DlogParams {
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      if (tid == 0) gemm::bulk_wait_read();   // the last stores are out of buf
-      gemm::named_bar_sync(1 + c, 128);
+      if (tid == 0) bulk_wait_read();   // the last stores are out of buf
+      named_bar_sync(1 + c, 128);
 #pragma unroll
       for (int j = 0; j < gemm::kBN / 16; ++j) {
         const int jj = gemm::kBN / 16 * half + j;
@@ -98,13 +99,13 @@ struct DlogParams {
                                        (((j & 7) ^ gq) << 4) + 4 * q) = pack_bf16(d[0], d[1]);
         }
       }
-      gemm::fence_proxy_async();
-      gemm::named_bar_sync(1 + c, 128);
+      fence_proxy_async();
+      named_bar_sync(1 + c, 128);
       if (tid == 0) {
 #pragma unroll
         for (int b = 0; b < 2; ++b)
-          gemm::tma_store(&out, buf + b * gemm::kBox, n0 + 128 * half + 64 * b, m0 + 64 * c);
-        gemm::bulk_commit();
+          tma_store(&out, buf + b * gemm::kBox, n0 + 128 * half + 64 * b, m0 + 64 * c);
+        bulk_commit();
       }
     }
   }

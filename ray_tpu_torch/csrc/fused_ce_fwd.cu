@@ -1,4 +1,5 @@
-// Fused lm-head cross-entropy forward for Hopper (sm_90a).
+// Fused lm-head cross-entropy forward for Hopper (sm_90a), on the wgmma/TMA
+// GEMM core of wgmma_gemm.cuh.
 //
 // Replaces: ray_tpu/ops/pallas_ce.py `_fwd_call` (:95), the
 // `pl.pallas_call` at :109 of kernel `_fwd_kernel` (:52).
@@ -9,189 +10,115 @@
 // device memory.
 //
 // Bound on the H100: at the scoring shape (N 16384, D 2048, V 32000) the
-// product is 2.15 TFLOP against ~200 MB of inputs, so the tensor cores
-// bound it (about 2.2 ms at the dense bf16 peak).
-// Design: the TPU kernel kept D whole in VMEM; a CTA's 227 KB cannot hold
-// 128 rows of D = 2048, so D is tiled too (a K loop of 32). One CTA of 8
-// warps takes 128 rows and a contiguous range of vocab tiles of 128
-// columns; each warp owns 16 whole rows, so the online logsumexp and the
-// target match need no exchange between warps. Products run on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation) out of a 3-stage
-// cp.async ring over the flattened (vocab tile, K step) sequence, so the
-// copies of the next vocab tile overlap the epilogue of this one. Vocab
-// is split across CTAs, and the split index varies fastest in the grid:
-// the CTAs in flight share a few row blocks of x and stream W once from
-// device memory, the rest from L2. Each CTA writes a partial (max, sum,
-// target logit) per row; a second small kernel combines the splits. The
-// ragged edges of N, D and V are masked (zero-filled loads, -inf columns).
+// product is 2 N D V = 2.15 TFLOP against ~200 MB of inputs, so the tensor
+// cores bound it (2.17 ms at the dense bf16 peak).
 //
-// Not yet used (later PRs): TMA, wgmma, warp specialisation.
-
-#include "common.cuh"
+// Design: ce_partial_kernel is the GEMM of the CE backward's dlog kernel
+// (M = N, N = V, K = D; A = x K-major, B = w MN-major, 128 x 256 tiles, a
+// producer warpgroup feeding 4 TMA stages, two consumer warpgroups on
+// wgmma m64n256k16) with another epilogue: each consumer reduces its
+// 64 x 256 f32 tile per row to the row's max (log2 units), the sum of exp2
+// against that max, and the target logit when the target falls in the
+// tile (columns past V count as -inf). A row's 256 columns lie in the 4
+// threads of a quad, 64 each, so the reductions are local then two
+// shuffles. Each tile writes one partial per row, struct-of-arrays (3,
+// vocab tiles, N) so that a warp's stores land in one sector; the small
+// ce_combine_kernel merges the vocab tiles into lse and tgt.
+// At full N, x (64 MB) is larger than the 50 MB L2: the core walks the
+// tiles in groups of 32 row tiles (16 MB of x) across all of V, so x is
+// read from device memory about once and w once per group (4 times).
+// What is left between it and the bound: each tile's epilogue (exp2 over
+// 32768 logits) runs while the tensor cores wait, as in the dlog kernel;
+// ping-pong consumers would overlap it.
+// Deterministic: every partial has one owner, the combine sums in order.
 
 #include <math_constants.h>
+
+#include "wgmma_gemm.cuh"
 
 namespace rtt {
 namespace {
 
-constexpr int kBM = 128;       // rows per CTA (16 per warp)
-constexpr int kBN = 128;       // vocab columns per tile
-constexpr int kBK = 32;        // K step
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kLDA = kBK + 8;  // padded smem rows (elements)
-constexpr int kLDB = kBN + 8;
-constexpr int kStageElems = kBM * kLDA + kBK * kLDB;
-constexpr int kSmem = kStages * kStageElems * 2;
+using gemm::Major;
 
-struct CeParams {
-  const bf16* x;
-  const bf16* w;
+struct CeFwdParams {
+  CUtensorMap a;                 // x (N, D), boxes 128 x 64
+  CUtensorMap b;                 // w (D, V), boxes 64 x 64
   const int* targets;
-  float* part;                 // (splits, N, 3): max (log2 units), sum, target logit
-  int N, D, V;
-  int n_vt;                    // vocab tiles
-  int tiles_per_split;
+  float* part;                   // (3, n_vt, N): max (log2 units), sum, target logit
+  int N, D, V, n_vt;
+
+  static constexpr int kEpiBytes = 0;
+
+  __device__ __forceinline__ void store(float (&acc)[gemm::kAcc], int m0, int n0, int c, int tid,
+                                        uint8_t*) const {
+    const int w = tid >> 5, gq = (tid & 31) >> 2, q = tid & 3;
+    const long long plane = static_cast<long long>(n_vt) * N;
+    float* out = part + static_cast<long long>(n0 / gemm::kBN) * N;
+    // this thread's columns are n0 + 2q + (8j + e), j < 32, e < 2; they lie
+    // below V while 8j + e < lim, all of them in every vocab tile but a
+    // ragged last one
+    const bool full = n0 + gemm::kBN <= V;
+    const int lim = V - n0 - 2 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 64 * c + 16 * w + gq + 8 * h;
+      float mx = -CUDART_INF_F, m2, sum = 0.f, tg = 0.f;
+      // every tile holds at least one column < V, so the max is finite. A
+      // full tile skips the column test: the ragged loop alone is exact on
+      // it too, but spills registers and makes K4 ~9% slower (PERF.md)
+      if (full) {
+#pragma unroll
+        for (int j = 0; j < gemm::kBN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        m2 = quad_max(mx) * kLog2e;
+#pragma unroll
+        for (int i = 0; i < gemm::kBN / 4; ++i)
+          sum += exp2f(fmaf(acc[4 * (i >> 1) + 2 * h + (i & 1)], kLog2e, -m2));
+      } else {
+#pragma unroll
+        for (int i = 0; i < gemm::kBN / 4; ++i)
+          if (8 * (i >> 1) + (i & 1) < lim) mx = fmaxf(mx, acc[4 * (i >> 1) + 2 * h + (i & 1)]);
+        m2 = quad_max(mx) * kLog2e;
+#pragma unroll
+        for (int i = 0; i < gemm::kBN / 4; ++i)
+          if (8 * (i >> 1) + (i & 1) < lim)
+            sum += exp2f(fmaf(acc[4 * (i >> 1) + 2 * h + (i & 1)], kLog2e, -m2));
+      }
+      const int tc = (row < N ? targets[row] : -1) - n0 - 2 * q;
+      if (tc >= 0 && tc < gemm::kBN) {                    // the target is in this tile
+#pragma unroll
+        for (int i = 0; i < gemm::kBN / 4; ++i)
+          if (8 * (i >> 1) + (i & 1) == tc) tg = acc[4 * (i >> 1) + 2 * h + (i & 1)];
+      }
+      sum = quad_sum(sum);
+      tg = quad_sum(tg);
+      if (q == 0 && row < N) {
+        out[row] = m2;
+        out[plane + row] = sum;
+        out[2 * plane + row] = tg;
+      }
+    }
+  }
 };
 
-__device__ __forceinline__ void load_stage(bf16* st, const CeParams& p, int row0,
-                                           int vt, int k0, int tid) {
-  bf16* sA = st;
-  bf16* sB = st + kBM * kLDA;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {              // A: 128 x 32 = 512 chunks
-    const int c = tid + i * kThreads;
-    const int r = c >> 2, cc = c & 3;
-    const int row = row0 + r, col = k0 + cc * 8;
-    const bool ok = row < p.N && col < p.D;
-    cp_async16(sA + r * kLDA + cc * 8, ok ? p.x + (long long)row * p.D + col : p.x, ok);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {              // B: 32 x 128 = 512 chunks
-    const int c = tid + i * kThreads;
-    const int r = c >> 4, cc = c & 15;
-    const int d = k0 + r, col = vt * kBN + cc * 8;
-    const bool ok = d < p.D && col < p.V;
-    cp_async16(sB + r * kLDB + cc * 8, ok ? p.w + (long long)d * p.V + col : p.w, ok);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) ce_partial_kernel(const CeParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int split = blockIdx.x;
-  const int row0 = blockIdx.y * kBM;
-  const int vt0 = split * p.tiles_per_split;
-  const int n_my = max(0, min(p.tiles_per_split, p.n_vt - vt0));
-  const int nK = (p.D + kBK - 1) / kBK;
-  const int total = n_my * nK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int row[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
-  int tr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) tr[i] = row[i] < p.N ? p.targets[row[i]] : -1;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load_stage(smem + s * kStageElems, p, row0, vt0 + s / nK, (s % nK) * kBK, tid);
-    cp_async_commit();
-  }
-
-  float acc[kBN / 8][4];
-#pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_r[2] = {0.f, 0.f};       // per-lane partial sums
-  float tg[2] = {0.f, 0.f};        // per-lane target logit (one lane hits)
-
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();               // stage `it` here; every warp is done with it-1
-    {
-      const int nx = it + kStages - 1;
-      if (nx < total)
-        load_stage(smem + (nx % kStages) * kStageElems, p, row0, vt0 + nx / nK,
-                   (nx % nK) * kBK, tid);
-      cp_async_commit();
-    }
-    const bf16* sA = smem + (it % kStages) * kStageElems;
-    const bf16* sB = sA + kBM * kLDA;
-#pragma unroll
-    for (int k16 = 0; k16 < kBK / 16; ++k16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, sA + (warp * 16 + (lane & 15)) * kLDA + k16 * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int nb2 = 0; nb2 < kBN / 16; ++nb2) {
-        uint32_t bw[4];
-        ldmatrix_x4_trans(bw, sB + (k16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLDB
-                                  + nb2 * 16 + (lane >> 4) * 8);
-        mma_16816(acc[2 * nb2], a, bw[0], bw[1]);
-        mma_16816(acc[2 * nb2 + 1], a, bw[2], bw[3]);
-      }
-    }
-
-    if (it % nK == nK - 1) {       // one vocab tile done: fold it into the row state
-      const int c0 = (vt0 + it / nK) * kBN;
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int nb = 0; nb < kBN / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + nb * 8 + 2 * t + (e & 1);
-          const float x = acc[nb][e];
-          if (col == tr[e >> 1]) tg[e >> 1] += x;
-          const float x2 = col < p.V ? x * kLog2e : -CUDART_INF_F;
-          acc[nb][e] = x2;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x2);
-        }
-      }
-      float m_new[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // every tile holds at least one real column, so m_new is finite
-        m_new[i] = fmaxf(m_r[i], quad_max(mx[i]));
-        l_r[i] *= exp2f(m_r[i] - m_new[i]);      // exp2(-inf) = 0 on the first tile
-        m_r[i] = m_new[i];
-      }
-#pragma unroll
-      for (int nb = 0; nb < kBN / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          l_r[e >> 1] += exp2f(acc[nb][e] - m_new[e >> 1]);
-          acc[nb][e] = 0.f;
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float l = quad_sum(l_r[i]);
-    const float tgt = quad_sum(tg[i]);
-    if (t == 0 && row[i] < p.N) {
-      float* out = p.part + ((long long)split * p.N + row[i]) * 3;
-      out[0] = m_r[i];
-      out[1] = l;
-      out[2] = tgt;
-    }
-  }
+__global__ void __launch_bounds__(gemm::kThreads, 1)
+    ce_partial_kernel(const __grid_constant__ CeFwdParams p) {
+  gemm::run<Major::K, Major::MN>(&p.a, &p.b, p, p.N, p.V, p.D);
 }
 
 __global__ void ce_combine_kernel(const float* __restrict__ part, float* __restrict__ lse,
-                                  float* __restrict__ tgt, int N, int splits) {
+                                  float* __restrict__ tgt, int N, int n_vt) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= N) return;
+  const long long plane = static_cast<long long>(n_vt) * N;
   float m = -CUDART_INF_F;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[((long long)s * N + r) * 3]);
+  for (int v = 0; v < n_vt; ++v) m = fmaxf(m, part[static_cast<long long>(v) * N + r]);
   float l = 0.f, g = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float* q = part + ((long long)s * N + r) * 3;
-    if (q[0] != -CUDART_INF_F) l += q[1] * exp2f(q[0] - m);
-    g += q[2];
+  for (int v = 0; v < n_vt; ++v) {
+    const long long i = static_cast<long long>(v) * N + r;
+    l += part[plane + i] * exp2f(part[i] - m);
+    g += part[2 * plane + i];
   }
   lse[r] = m * kLn2 + logf(l);
   tgt[r] = g;
@@ -200,31 +127,32 @@ __global__ void ce_combine_kernel(const float* __restrict__ part, float* __restr
 }  // namespace
 }  // namespace rtt
 
-// x (N,D) and w (D,V) bf16 contiguous, targets (N,) int32 already clamped
-// to [0, V). part is scratch of splits*N*3 f32; lse and tgt are (N,) f32.
-// D and V must be multiples of 8 (16-byte rows).
+// x (N,D) and w (D,V) bf16 contiguous and 16-byte aligned, targets (N,)
+// int32 already clamped to [0, V). part is scratch of 3 * n_vt * N f32,
+// n_vt the caller's count of vocab tiles, which must be ceil(V/256); lse
+// and tgt are (N,) f32. D and V must be multiples of 8 (16-byte rows for
+// TMA).
 extern "C" int rtt_fused_ce_fwd(const void* x, const void* w, const void* targets,
-                                void* part, void* lse, void* tgt,
-                                int N, int D, int V, int splits, int tiles_per_split,
-                                void* stream) {
-  using rtt::bf16;
-  const int n_vt = (V + rtt::kBN - 1) / rtt::kBN;
-  if (N <= 0 || D <= 0 || V <= 0 || D % 8 || V % 8 || splits <= 0 ||
-      (long long)splits * tiles_per_split < n_vt)
-    return (int)cudaErrorInvalidValue;
-  rtt::CeParams p{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                  static_cast<const int*>(targets), static_cast<float*>(part),
-                  N, D, V, n_vt, tiles_per_split};
+                                void* part, void* lse, void* tgt, int N, int D, int V,
+                                int n_vt, void* stream) {
+  using namespace rtt;
+  if (N <= 0 || D <= 0 || V <= 0 || D % 8 || V % 8) return (int)cudaErrorInvalidValue;
+  if (n_vt != (V + gemm::kBN - 1) / gemm::kBN) return (int)cudaErrorInvalidValue;
+  CeFwdParams p{};
+  cudaError_t err = gemm::make_map(&p.a, x, N, D, 128, 64);
+  if (err == cudaSuccess) err = gemm::make_map(&p.b, w, D, V, 64, 64);
+  if (err != cudaSuccess) return (int)err;
+  p.targets = static_cast<const int*>(targets);
+  p.part = static_cast<float*>(part);
+  p.N = N;
+  p.D = D;
+  p.V = V;
+  p.n_vt = n_vt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      rtt::ce_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, rtt::kSmem);
+  err = gemm::launch(ce_partial_kernel, p, N, V, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(splits, (N + rtt::kBM - 1) / rtt::kBM);
-  rtt::ce_partial_kernel<<<grid, rtt::kThreads, rtt::kSmem, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rtt::ce_combine_kernel<<<(N + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(lse), static_cast<float*>(tgt),
-      N, splits);
+  ce_combine_kernel<<<(N + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(lse), static_cast<float*>(tgt), N,
+      p.n_vt);
   return (int)cudaGetLastError();
 }

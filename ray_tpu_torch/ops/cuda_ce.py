@@ -6,11 +6,13 @@ the design and what bounds it):
 
 - ``csrc/fused_ce_fwd.cu``: ``fused_ce_fwd`` replaces ``pallas_ce.py``
   ``_fwd_call`` (:95) / ``_fwd_kernel`` (:52);
-- ``csrc/fused_ce_bwd.cu`` (on the GEMM core ``csrc/wgmma_gemm.cuh``)
-  replaces ``_bwd_call`` (:201): ``fused_ce_bwd_dlog`` forms dlog for a
-  chunk of rows once, ``fused_ce_bwd_dx`` takes it into dx (``_dx_kernel``,
-  :142) and ``fused_ce_bwd_dw`` into dW (``_dw_kernel``, :171);
-  ``fused_ce_bwd`` walks the chunks.
+- ``csrc/fused_ce_bwd.cu`` replaces ``_bwd_call`` (:201):
+  ``fused_ce_bwd_dlog`` forms dlog for a chunk of rows once,
+  ``fused_ce_bwd_dx`` takes it into dx (``_dx_kernel``, :142) and
+  ``fused_ce_bwd_dw`` into dW (``_dw_kernel``, :171); ``fused_ce_bwd``
+  walks the chunks.
+
+All four kernels run on the GEMM core ``csrc/wgmma_gemm.cuh``.
 
 Contract, as in the JAX module:
     x (N, D), w (D, V), targets (N,) int
@@ -28,8 +30,7 @@ import torch.nn.functional as F
 
 from .._native import build
 
-_TILE_V = 128            # vocab columns per tile (kBN in the .cu)
-_ROWS = 128              # rows per CTA (kBM in the .cu)
+_TILE_V = 256            # vocab columns per tile (gemm::kBN; rtt_fused_ce_fwd checks it)
 # Most bytes the backward's dlog chunk may take: no buffer grows as N x V.
 _DLOG_BUDGET = 256 * 2**20
 
@@ -87,19 +88,14 @@ def fused_ce_fwd(x: torch.Tensor, w: torch.Tensor,
     dev = x.device
     N, D = x.shape
     V = w.shape[1]
-    # Split the vocab across CTAs: at least 8 splits (so the CTAs in
-    # flight share few row blocks of x), more when there are few rows.
+    # one partial (max, sum, target logit) per row and vocab tile; the
+    # kernel refuses a tile count other than its own
     n_vt = -(-V // _TILE_V)
-    row_blocks = -(-N // _ROWS)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(n_vt, max(8, -(-2 * sms // row_blocks)))
-    tiles_per_split = -(-n_vt // splits)
-    splits = -(-n_vt // tiles_per_split)
-    part = torch.empty((splits, N, 3), dtype=torch.float32, device=dev)
+    part = torch.empty((3, n_vt, N), dtype=torch.float32, device=dev)
     lse = torch.empty((N,), dtype=torch.float32, device=dev)
     tgt = torch.empty((N,), dtype=torch.float32, device=dev)
     _launch(fused_ce_fwd, "fused_ce_fwd", dev, x.data_ptr(), w.data_ptr(), targets.data_ptr(),
-            part.data_ptr(), lse.data_ptr(), tgt.data_ptr(), N, D, V, splits, tiles_per_split)
+            part.data_ptr(), lse.data_ptr(), tgt.data_ptr(), N, D, V, n_vt)
     return lse, tgt
 
 

@@ -11,8 +11,9 @@ rounds P to bf16 before the P.V product (as the reference kernel does)
 and writes o in bf16, hence atol 2e-2 on o for unit-variance inputs, and
 1e-2 on each row's error relative to the row's norm (late causal rows
 average many values and are small); lse and the CE outputs differ only by
-the order of f32 sums, hence 1e-3. The backward kernels round p and dS
-(attention) or dlog (CE) to bf16 where the reference does and write bf16;
+the order of f32 sums, hence 1e-3. The attention forward and the CE
+backward are held bit for bit over two runs (no atomics). The backward
+kernels round p and dS (attention) or dlog (CE) to bf16 where the reference does and write bf16;
 their plain versions run in f32 from the same bf16 values, so each output
 row (dq, dk, dv, dlog, dx and dW along their last axis) is held at 1e-2
 relative to its norm (floored at 1e-3 of the largest row norm, for rows
@@ -73,7 +74,23 @@ ATTN_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("B,S,T,H,KVH,hd,causal", ATTN_SHAPES)
+# S and T around the forward kernel's 128-row q and kv tiles, causal with
+# T > S and T < S, hd 64 and 128, GQA groups of 1, 2 and 4
+ATTN_TILE_EDGES = [
+    (1, 127, 127, 4, 4, 128, True),
+    (1, 128, 128, 4, 2, 64, True),
+    (1, 129, 129, 4, 1, 128, True),
+    (1, 257, 257, 8, 2, 128, True),
+    (1, 127, 257, 2, 1, 128, True),
+    (1, 128, 257, 4, 4, 64, True),
+    (1, 129, 128, 4, 1, 64, True),
+    (1, 257, 129, 2, 2, 128, True),
+    (2, 257, 127, 4, 2, 128, False),
+    (1, 129, 257, 4, 1, 64, False),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KVH,hd,causal", ATTN_SHAPES + ATTN_TILE_EDGES)
 def test_flash_attention_kernel_matches_plain(dev, B, S, T, H, KVH, hd, causal):
     gen = torch.Generator(device=dev).manual_seed(0)
     q = _randn(gen, B, S, H, hd)
@@ -87,6 +104,17 @@ def test_flash_attention_kernel_matches_plain(dev, B, S, T, H, KVH, hd, causal):
     assert (o.float() - ro).abs().max().item() <= ATTN_ATOL
     assert _row_rel_err(o, ro) <= ATTN_ROW_RTOL
     assert (lse - rlse).abs().max().item() <= STAT_ATOL
+
+
+def test_flash_attention_kernel_is_deterministic(dev):
+    """Two runs of the forward kernel give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = _randn(gen, 2, 300, 4, 128)
+    k = _randn(gen, 2, 300, 2, 128)
+    v = _randn(gen, 2, 300, 2, 128)
+    o1, lse1 = cuda_attention.flash_attention_fwd(q, k, v, causal=True)
+    o2, lse2 = cuda_attention.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def test_flash_attention_kernel_reads_strided_layout(dev):
@@ -242,17 +270,46 @@ def test_fused_ce_bwd_kernel_alone_one_tile(dev, kernel):
         assert _row_rel_err(out, 3 * ref) <= GRAD_ROW_RTOL
 
 
-@pytest.mark.parametrize("N,D,V", CE_SHAPES)
+# N below one 128-row tile, N = 700, V not a multiple of the 256-column
+# vocab tile, and 33 row tiles, past one group of the kernel's raster order
+CE_FWD_EDGES = [
+    (100, 128, 512),
+    (700, 264, 2104),
+    (33 * 128 + 5, 64, 2104),
+]
+
+
+@pytest.mark.parametrize("N,D,V", CE_SHAPES + CE_FWD_EDGES)
 def test_fused_ce_kernel_matches_plain(dev, N, D, V):
+    """The forward kernel, with targets on the vocab tiles' edges."""
     gen = torch.Generator(device=dev).manual_seed(3)
     x = _randn(gen, N, D, scale=0.5)
     w = _randn(gen, D, V, scale=0.05)
     t = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    t[:4] = torch.tensor([0, 255, 256, V - 1], dtype=torch.int32)
     lse, tgt = cuda_ce.fused_ce_fwd(x, w, t)
     rl, rt = cuda_ce.fused_ce_fwd_plain(x.float(), w.float(), t)
     torch.cuda.synchronize()
     assert (lse - rl).abs().max().item() <= STAT_ATOL
     assert (tgt - rt).abs().max().item() <= STAT_ATOL
+
+
+@pytest.mark.parametrize("n_vt", [8, 10])
+def test_fused_ce_fwd_refuses_a_wrong_tile_count(dev, n_vt):
+    """The forward's entry point takes the caller's count of vocab tiles
+    (the rows of its partials buffer) and refuses one that is not
+    ceil(V / 256), before it launches anything."""
+    from ray_tpu_torch._native import build
+    N, D, V = 128, 64, 2104                       # 9 vocab tiles
+    x = torch.zeros(N, D, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(D, V, dtype=torch.bfloat16, device=dev)
+    t = torch.zeros(N, dtype=torch.int32, device=dev)
+    part = torch.empty(3 * 10 * N, dtype=torch.float32, device=dev)
+    out = torch.empty(2, N, dtype=torch.float32, device=dev)
+    err = build.library().rtt_fused_ce_fwd(
+        x.data_ptr(), w.data_ptr(), t.data_ptr(), part.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), N, D, V, n_vt, torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
 
 
 def test_fused_cross_entropy_clamps_and_counts(dev):
