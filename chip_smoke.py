@@ -10,8 +10,9 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    paths' shapes, held against its plain PyTorch version (f32 from the
    same bf16 inputs, TF32 off) and timed beside its bound, the plain
    version and one PyTorch library call used only as a yardstick (SDPA
-   and its backward, ``F.cross_entropy(x @ w)``); two runs of the
-   attention forward held bit for bit; the CE backward's three kernels
+   and its backward, ``F.cross_entropy(x @ w)``); two runs of each
+   attention kernel held bit for bit, and the two backward kernels
+   together beside the SDPA backward; the CE backward's three kernels
    (dlog, dx, dW) each on one chunk of rows, dx and dW beside the one
    matmul each computes on that chunk (dlog has no such call), then
    the whole chunked backward against its 6 N D V bound and
@@ -60,6 +61,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -239,9 +241,14 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
+    kname = "?"
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            # the readable part of the mangled name, with the head dim if any
+            m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+            kname = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else (m.group(1) if m else "?")
+        elif "registers" in line or "spill" in line or "Performance" in line:
+            print(f"  ptxas: {kname}: {line.strip()}")
 
     fa = cuda_attention.flash_attention_fwd
     ce = cuda_ce.fused_ce_fwd
@@ -306,6 +313,13 @@ def main(argv) -> int:
         dqk = cuda_attention.flash_attention_bwd_dq
         dk, dv = dkv(q, k, v, do, lse, delta, causal=causal)
         dq = dqk(q, k, v, do, lse, delta, causal=causal)
+        dk2, dv2 = dkv(q, k, v, do, lse, delta, causal=causal)
+        dq2 = dqk(q, k, v, do, lse, delta, causal=causal)
+        fail_unless(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                    f"{label}: two runs of flash_attention_bwd_dkv gave different dk or dv")
+        fail_unless(torch.equal(dq, dq2), f"{label}: two runs of flash_attention_bwd_dq gave "
+                                          "different dq")
+        del dk2, dv2, dq2
         dof = do.float()
         plain = dict(causal=causal)
         rk, rv = cuda_attention.flash_attention_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, **plain)
@@ -336,10 +350,11 @@ def main(argv) -> int:
                           nbytes(q, k, v, do, lse, delta) + nbytes(q), peak_flops, peak_bw)
         print(f"kernel flash_attention_bwd [{label}]: row-relative err "
               + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
-              + f"; dkv {ms_kv:.4f} ms (plain {plain_kv:.4f} ms, bound {b_kv:.4f} ms {by_kv} "
-              f"-> {b_kv / ms_kv:.1%}), dq {ms_q:.4f} ms (plain {plain_q:.4f} ms, bound "
-              f"{b_q:.4f} ms {by_q} -> {b_q / ms_q:.1%}); sdpa backward {lib_bwd:.4f} ms "
-              f"(dq, dk, dv together)")
+              + f"; two runs bit-identical; dkv {ms_kv:.4f} ms (plain {plain_kv:.4f} ms, bound "
+              f"{b_kv:.4f} ms {by_kv} -> {b_kv / ms_kv:.1%}), dq {ms_q:.4f} ms (plain "
+              f"{plain_q:.4f} ms, bound {b_q:.4f} ms {by_q} -> {b_q / ms_q:.1%}); dkv + dq "
+              f"{ms_kv + ms_q:.4f} ms against the sdpa backward {lib_bwd:.4f} ms (dq, dk, dv "
+              f"together): {(ms_kv + ms_q) / lib_bwd:.2f}x")
         return fwd, (dict(max_abs_err=max(errs["dk"][1], errs["dv"][1]), ms=ms_kv,
                           plain_ms=plain_kv, bound_ms=b_kv, bound_by=by_kv, library_ms=lib_bwd),
                      dict(max_abs_err=errs["dq"][1], ms=ms_q, plain_ms=plain_q, bound_ms=b_q,

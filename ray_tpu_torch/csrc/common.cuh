@@ -1,11 +1,7 @@
-// Shared device helpers for the port's hand-written Hopper kernels:
-// cp.async copies, ldmatrix loads and the m16n8k16 bf16 tensor-core
-// product (mma.sync, f32 accumulation).
-//
-// Fragment layout of mma.m16n8k16.row.col (lane = 4*g + t):
-//   A (16x16, row-major)  a0: (g, 2t..2t+1)  a1: (g+8, 2t..)  a2: (g, 8+2t..)  a3: (g+8, 8+2t..)
-//   B (16x8, "col")       b0: (k 2t..2t+1, n g)  b1: (k 8+2t.., n g)
-//   C (16x8, f32)         c0,c1: (g, 2t..2t+1)  c2,c3: (g+8, 2t..2t+1)
+// Shared device helpers for the port's hand-written Hopper kernels: the
+// shared-memory address, the bf16 pair pack, and the reductions over the
+// four lanes that share a row of an accumulator fragment (lane = 4 g + t:
+// rows g and g + 8, columns 2t and 2t + 1 of each 8-column block).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,46 +17,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global->shared copy; when !pred nothing is read and the 16
-// destination bytes are zero-filled (the ragged edge of a tile).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(smem)), "l"(gmem), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a * b
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats to a bf16 pair; `lo` lands in the low half (the lower column).

@@ -80,15 +80,6 @@ struct FaCfg {
   static constexpr int kSmem = 1024 + (1 + 2 * kStages) * kTile + (1 + 4 * kStages) * 8;
 };
 
-// Keeps registers that an asynchronous product reads live until its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k]) :: "memory");
-}
-
 // Issues S = Q K^T (64 x 128, f32) for one consumer: q at its 64 rows of
 // the Q tile, k at a K tile; both K-major, hd in 64-column boxes.
 template <int HD>
@@ -151,13 +142,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBKV / 2], float (&m)[2
     sc[i] = exp2f(fmaf(sc[i], sl2, neg[(i >> 1) & 1]));
     rs[(i >> 1) & 1] += sc[i];
   }
-}
-
-// P as bf16 pairs in the A fragment of the register form, k16 step kk:
-// (sc[8kk + 2i], sc[8kk + 2i + 1]), i = 0..3.
-__device__ __forceinline__ void pack_p(const float (&sc)[kBKV / 2], uint32_t (&pa)[kBKV / 16][4]) {
-#pragma unroll
-  for (int i = 0; i < kBKV / 2; i += 2) pa[i >> 3][(i & 7) >> 1] = pack_bf16(sc[i], sc[i + 1]);
 }
 
 template <int HD>
@@ -255,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     softmax_tile(sc, m, corr, rs, 0, row, row0, qd, p);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) l[hh] = rs[hh];
-    pack_p(sc, pa);
+    pack_a(sc, pa);
 
     for (int j = 1; j < n_kt; ++j) {
       const int s = j % kStages, sp = (j - 1) % kStages;
@@ -279,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
       for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + rs[hh];
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-      pack_p(sc, pa);
+      pack_a(sc, pa);
     }
 
     const int sl = (n_kt - 1) % kStages;
@@ -325,18 +309,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const __grid_con
     }
     if (tid == 0) bulk_wait();
   }
-}
-
-// Map of a (B, rows, heads, hd) bf16 tensor with element strides
-// (sb, ss, sh, 1), read or written in boxes of box_rows x 64.
-cudaError_t make_map4(CUtensorMap* map, const void* base, int B, int rows, int heads, int hd,
-                      long long sb, long long ss, long long sh, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  return encode_map(map, base, 4, dims, strides, box);
 }
 
 template <int HD>

@@ -1,8 +1,9 @@
 // PTX building blocks for Hopper (sm_90a) kernels: mbarriers, TMA loads and
 // stores (2-D and 4-D tensor maps), named barriers, wgmma products with f32
-// accumulation (both operands in shared memory, or A in registers), and
-// the host-side encoding of tensor maps. Shared by the GEMM core
-// (wgmma_gemm.cuh) and the flash-attention forward.
+// accumulation (both operands in shared memory, or A in registers, with
+// the pack of an accumulator into A fragments), and the host-side encoding
+// of tensor maps. Shared by the GEMM core (wgmma_gemm.cuh) and the three
+// flash-attention kernels.
 //
 // Shared-memory matrix descriptors (PTX ISA, "Matrix Descriptor Format";
 // CUTLASS's make_gmma_desc), all with the 128-byte swizzle, rows of 128
@@ -148,6 +149,23 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// Keeps registers that an asynchronous product reads live until its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k]) :: "memory");
+}
+
+// An f32 accumulator fragment (64 x 8N/4 columns) as bf16 A fragments of
+// the register form, one per k16 step kk: (d[8kk + 2i], d[8kk + 2i + 1]).
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&d)[N], uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 2) a[i >> 3][(i & 7) >> 1] = pack_bf16(d[i], d[i + 1]);
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle.
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
@@ -214,6 +232,25 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d (+)= A (64 x 16) . B (16 x 64), both from shared memory; kTransA/kTransB
+// = 1 for an MN-major operand. scale_d = 0 ignores d's old value.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
@@ -299,6 +336,18 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Map of a (B, rows, heads, hd) bf16 tensor with element strides
+// (sb, ss, sh, 1), read or written in boxes of box_rows x 64.
+inline cudaError_t make_map4(CUtensorMap* map, const void* base, int B, int rows, int heads,
+                             int hd, long long sb, long long ss, long long sh, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  return encode_map(map, base, 4, dims, strides, box);
 }
 
 }  // namespace rtt

@@ -11,8 +11,8 @@ rounds P to bf16 before the P.V product (as the reference kernel does)
 and writes o in bf16, hence atol 2e-2 on o for unit-variance inputs, and
 1e-2 on each row's error relative to the row's norm (late causal rows
 average many values and are small); lse and the CE outputs differ only by
-the order of f32 sums, hence 1e-3. The attention forward and the CE
-backward are held bit for bit over two runs (no atomics). The backward
+the order of f32 sums, hence 1e-3. The attention forward and backward and
+the CE backward are held bit for bit over two runs (no atomics). The backward
 kernels round p and dS (attention) or dlog (CE) to bf16 where the reference does and write bf16;
 their plain versions run in f32 from the same bf16 values, so each output
 row (dq, dk, dv, dlog, dx and dW along their last axis) is held at 1e-2
@@ -142,14 +142,25 @@ def test_flash_attention_dispatch_counts_and_rejects(dev):
         attention.flash_attention(bad, bad, bad)                      # hd 96
 
 
-@pytest.mark.parametrize("B,S,T,H,KVH,hd,causal", ATTN_SHAPES)
-def test_flash_attention_bwd_kernels_match_plain(dev, B, S, T, H, KVH, hd, causal):
-    gen = torch.Generator(device=dev).manual_seed(7)
+def _bwd_problem(seed, B, S, T, H, KVH, hd, causal, dev):
+    """Random q, k, v, dO and the forward kernel's o and lse."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = _randn(gen, B, S, H, hd)
     k = _randn(gen, B, T, KVH, hd)
     v = _randn(gen, B, T, KVH, hd)
     do = _randn(gen, B, S, H, hd)
     o, lse = cuda_attention.flash_attention_fwd(q, k, v, causal=causal)
+    return q, k, v, do, o, lse
+
+
+# The backward kernels' tiles are 128 rows owned by a CTA and 64 rows
+# streamed; the tile edges above cover both. One GQA group of 8 besides.
+ATTN_BWD_SHAPES = ATTN_SHAPES + ATTN_TILE_EDGES + [(1, 257, 200, 8, 1, 128, True)]
+
+
+@pytest.mark.parametrize("B,S,T,H,KVH,hd,causal", ATTN_BWD_SHAPES)
+def test_flash_attention_bwd_kernels_match_plain(dev, B, S, T, H, KVH, hd, causal):
+    q, k, v, do, o, lse = _bwd_problem(7, B, S, T, H, KVH, hd, causal, dev)
     before = (cuda_attention.flash_attention_bwd_dkv.launches,
               cuda_attention.flash_attention_bwd_dq.launches)
     dq, dk, dv = cuda_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
@@ -161,6 +172,17 @@ def test_flash_attention_bwd_kernels_match_plain(dev, B, S, T, H, KVH, hd, causa
     for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert out.shape == ref.shape and out.dtype == torch.bfloat16, name
         assert _row_rel_err(out, ref) <= GRAD_ROW_RTOL, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernels_are_deterministic(dev, causal):
+    """Two runs of the dK/dV and dQ kernels give the same bits: every
+    output element has one owner and no atomics are used."""
+    q, k, v, do, o, lse = _bwd_problem(17, 2, 300, 257, 8, 2, 128, causal, dev)
+    first = cuda_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    second = cuda_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_bwd_reads_strided_dout(dev):
