@@ -35,7 +35,26 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    flash + fused) with ``default_optimizer(1e-4, warmup_steps=10,
    total_steps=1000)`` on the same 8 x 2049 batch every step: one warm-up
    step, then 10 timed steps (step time, tokens/s, MFU against the dense
-   bf16 peak, peak memory, losses and grad norms).
+   bf16 peak, peak memory, losses and grad norms);
+6. LoRA serving phase: a seeded rank-8 adapter on ``blocks/wq`` and
+   ``lm_head``, written as ``.npz`` and read back, folded into the same
+   ``LLAMA_BENCH`` weights with ``apply_lora``; a ``LlamaEngine`` on the
+   folded tree (f32 compute on the bf16 weights) answers 4 greedy
+   requests, whose tokens must equal the argmax of ``forward`` on the
+   folded tree and differ from the unadapted engine's on one at least;
+7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
+   2 x 513 tokens, the flash path against the einsum attention path with
+   the routing pinned to the einsum path's (loss, aux loss, every
+   gradient), and unpinned (how many assignments move, loss, aux loss);
+8. MoE training phase: the same model through ``create_train_state`` and
+   ``make_train_step`` on 4 x 2049 tokens, a warm-up step and 5 timed
+   steps (step time, tokens/s, MFU on ``active_param_count``, peak
+   memory); the dense dispatch's pieces timed at that shape;
+9. MoE scoring phase: the widths cut to 4 layers, ``loss_fn`` on the same
+   batch under ``inference_mode``, median of 3;
+10. ViT phase: ``VIT_B_16`` at full size on 64 seeded 224x224x3 images,
+   a warm-up and 5 timed train steps, then a forward-only eval; its bf16
+   logits are held against its f32 logits on 8 images.
 
 Each kernel's launch counter is set to 0 just before each main-path run
 (the scoring batches, the engine's requests, the training steps) and read
@@ -44,11 +63,16 @@ per path. The scoring path must launch the two forward kernels, the
 training path all seven (per step: the flash forward twice per layer,
 once more in remat's recompute, each attention backward kernel once per
 layer, the CE forward once, each CE backward kernel once per chunk of
-rows). The serving path launches none: like the JAX engine, its
-attention is the plain cached einsum. ``--profile`` adds a
+rows). The MoE training path launches the three attention kernels as the
+dense one does and no CE kernel (its loss is the CE on full logits, as in
+the reference), the MoE scoring path the flash forward once per layer.
+The serving and LoRA serving paths launch none: like the JAX engine, the
+engine's attention is the plain cached einsum; ViT has no kernel (its
+attention is an einsum in the reference too). ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
-(whose printed times then carry the profiler's cost) and of one training
-step, with the optimizer update's share of it. The second-to-last line is the kernels' JSON record, the last line
+(whose printed times then carry the profiler's cost), of one training
+step, with the optimizer update's share of it, of one MoE training step,
+one MoE scoring batch and one ViT training step. The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed; without a CUDA device it
 exits with 2 before doing anything.
@@ -56,6 +80,7 @@ exits with 2 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -104,6 +129,17 @@ GRAD_ROW_RTOL = 1e-2
 # reading on an H100 (PERF.md): gradients 1.4e-2 to 3.2e-2, loss 1.3e-5.
 TRAIN_GRAD_RTOL = 1e-1
 TRAIN_LOSS_RTOL = 1e-4
+# The MoE check with the routing pinned is held to the two limits above
+# (readings on an H100: gradients 1.1e-2 to 1.7e-2, loss 3.9e-5). Free,
+# top-k routing is discontinuous: the bf16 differences of the two attention
+# paths send some assignments to other experts (read 1.39%, at most 5%
+# allowed), and the loss and the aux loss move by more than the pinned
+# limits (read 7.3e-5 and 2.9e-4, 1e-2 allowed).
+MOE_FREE_RTOL = 1e-2
+MOE_FREE_MOVED = 5e-2
+# ViT-B/16, bf16 activations against f32 activations (the same f32
+# weights) on 8 images: logits absolute, for logits of order 1 (read 4.8e-2).
+VIT_LOGIT_ATOL = 0.25
 
 # The one card this script has been run on: NVIDIA H100 SXM. Dense bf16
 # tensor-core peak (FLOP/s) and memory rate (bytes/s) from its data sheet.
@@ -210,6 +246,82 @@ def device_breakdown(label: str, fn):
     return result
 
 
+@contextlib.contextmanager
+def moe_routing(moe_ops, record=None, replay=None):
+    """Wrap ``moe_ops.top_k_gating`` (which ``moe_ffn`` looks up at each
+    call): append each call's (router logits, gating result) to
+    ``record``; with ``replay``, a list of logits from an earlier run in
+    the same call order, route on those values while the gradient flows
+    through this run's own logits (straight through)."""
+    real = moe_ops.top_k_gating
+    calls = None if replay is None else iter(replay)
+
+    def gating(logits, **kw):
+        if calls is not None:
+            ref = next(calls)
+            logits = logits + (ref - logits).detach()
+        out = real(logits, **kw)
+        if record is not None:
+            record.append((logits.detach().clone(), out))
+        return out
+
+    moe_ops.top_k_gating = gating
+    try:
+        yield
+    finally:
+        moe_ops.top_k_gating = real
+
+
+def moe_flops_per_token(cfg, seq_len: int) -> float:
+    """Training FLOPs per token of the MoE model as ``llama.flops_per_token``
+    counts the dense one: 6 x the active non-embedding parameters plus the
+    attention term; the dense dispatch and combine einsums are not in it."""
+    from ray_tpu_torch.models import moe_llama
+
+    n = moe_llama.active_param_count(cfg) - cfg.vocab_size * cfg.dim
+    return 6.0 * n + 12 * cfg.n_layers * cfg.dim * seq_len
+
+
+def timed_steps(step, state, batch, n_steps):
+    """A warm-up step, then ``n_steps`` timed ones (host clock, ending in a
+    synchronize) -> (state, metrics of every step, seconds per timed step)."""
+    state, m = step(state, batch)
+    metrics = [m]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return state, metrics, (time.perf_counter() - t0) / n_steps
+
+
+def optimizer_share(label, loss_fn, opt, state, batch):
+    """One more train step, not profiled, with CUDA events around the
+    optimizer update: prints the update's time and its share of the step's
+    wall time, returns the new state."""
+    from ray_tpu_torch import parallel
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_update(grads, opt_state, prm):
+        marks[0].record()
+        out = opt.update(grads, opt_state, prm)
+        marks[1].record()
+        return out
+
+    step = parallel.make_train_step(
+        loss_fn, parallel.Optimizer(opt.init, timed_update, opt.learning_rate))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms, opt_ms = (time.perf_counter() - t0) * 1e3, marks[0].elapsed_time(marks[1])
+    print(f"{label} optimizer (global norm + update): {opt_ms:.2f} ms between CUDA events "
+          f"of a {step_ms:.2f} ms step ({opt_ms / step_ms:.1%})")
+    return state
+
+
 def main(argv) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -221,9 +333,10 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tpu_torch import parallel
     from ray_tpu_torch._native import build
-    from ray_tpu_torch.llm import GenRequest, LlamaEngine
-    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.llm import GenRequest, LlamaEngine, apply_lora, load_lora_adapter
+    from ray_tpu_torch.models import llama, moe_llama, vit
     from ray_tpu_torch.ops import cuda_attention, cuda_ce
+    from ray_tpu_torch.ops import moe as moe_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -364,6 +477,7 @@ def main(argv) -> int:
                                      record["flash_attention_bwd_dq"])) = attn_phase(
         "main-path shape", 8, 2048, 2048, 16, 8, 128, True)
     attn_phase("non-causal, T != S", 8, 2048, 3000, 16, 8, 128, False)
+    attn_phase("MoE training shape (Mixtral: H 32, KVH 8)", 4, 2048, 2048, 32, 8, 128, True)
     torch.cuda.empty_cache()
 
     N, D, V = 8 * 2048, 2048, 32000
@@ -605,7 +719,70 @@ def main(argv) -> int:
           f"{err:.4f} (max |logit| {scale:.3f}); launches flash {fa.launches} "
           f"(a check, outside the main-path counts)")
 
-    del eng, reqs, cache, logits, params
+    del eng, reqs, cache, logits
+
+    # ---------------- LoRA serving phase (main path) ----------------
+    # A seeded rank-8 adapter, A ~ N(0, 1/D) and B ~ N(0, 1/r), so that its
+    # delta of the logits is of the logits' own size. The engine computes in
+    # f32 from the bf16 weights: greedy tokens are then the argmax of
+    # forward's logits exactly (in bf16 the cached and the full path round
+    # apart, and a near tie can go either way).
+    rank = 8
+    arng = np.random.default_rng(1)
+    L, D, H, hd = cfg.n_layers, cfg.dim, cfg.n_heads, cfg.head_dim
+    adapter = {
+        "blocks/wq.A": (arng.standard_normal((L * D * H, rank)) / math.sqrt(D)).astype(np.float32),
+        "blocks/wq.B": (arng.standard_normal((rank, hd)) / math.sqrt(rank)).astype(np.float32),
+        "lm_head.A": (arng.standard_normal((D, rank)) / math.sqrt(D)).astype(np.float32),
+        "lm_head.B": (arng.standard_normal((rank, cfg.vocab_size)) / math.sqrt(rank)
+                      ).astype(np.float32),
+    }
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    adapter_path = os.path.join(out_dir, "adapter.npz")
+    np.savez(adapter_path, **adapter)
+    folded = apply_lora(params, load_lora_adapter(adapter_path))
+    fail_unless(folded["embed"] is params["embed"] and folded["lm_head"] is not params["lm_head"],
+                "apply_lora: unadapted leaves must be shared, adapted ones new")
+    lora_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    lora_prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                    for n in rng.integers(16, 65, 4)]
+    lora_eng = LlamaEngine(lora_cfg, folded, max_batch=4, max_seq=256, prefill_chunk=64,
+                           device=dev)
+    lora_reqs = [GenRequest(request_id=f"lora{i}", prompt_ids=p, max_tokens=8, adapter_id="a")
+                 for i, p in enumerate(lora_prompts)]
+    zero()
+    t0 = time.perf_counter()
+    for r in lora_reqs:
+        fail_unless(lora_eng.add_request(r), f"request {r.request_id} refused")
+    lora_steps = 0
+    while any(not r.done for r in lora_reqs):
+        lora_eng.step()
+        lora_steps += 1
+    torch.cuda.synchronize()
+    lora_s = time.perf_counter() - t0
+    count("lora_serving")
+    with torch.inference_mode():
+        for r in lora_reqs:
+            ids = list(r.prompt_ids)
+            for tok in r.generated:
+                logits = llama.forward(folded, torch.tensor([ids], device=dev), lora_cfg)
+                fail_unless(int(logits[0, -1].argmax()) == tok,
+                            f"LoRA serving: {r.request_id} token {len(ids) - len(r.prompt_ids)}"
+                            f" is {tok}, forward's argmax {int(logits[0, -1].argmax())}")
+                ids.append(tok)
+    base_eng = LlamaEngine(lora_cfg, params, max_batch=4, max_seq=256, prefill_chunk=64,
+                           device=dev)
+    base = [base_eng.generate(p, max_tokens=8) for p in lora_prompts]
+    n_diff = sum(b != r.generated for b, r in zip(base, lora_reqs))
+    fail_unless(n_diff >= 1, "LoRA serving: the adapter changed no request's tokens")
+    print(f"LoRA serving: rank-{rank} adapter on blocks/wq and lm_head folded into LLAMA_BENCH "
+          f"(apply_lora); 4 greedy requests, prompts {min(map(len, lora_prompts))}-"
+          f"{max(map(len, lora_prompts))} tokens, 8 new each, {lora_steps} steps in "
+          f"{lora_s:.3f} s (f32 compute); every token equals forward's argmax on the folded "
+          f"tree; {n_diff} of 4 differ from the unadapted engine's; launches "
+          + ", ".join(f"{k} {launches[k]['lora_serving']}" for k in kernels))
+    del lora_eng, base_eng, folded, params
     torch.cuda.empty_cache()
 
     # ---------------- training check ----------------
@@ -641,15 +818,7 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero()
-    state, m = train_step(state, batch)           # warm-up step (lr 0 at step 0)
-    metrics = [m]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        state, m = train_step(state, batch)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    state, metrics, step_s = timed_steps(train_step, state, batch, n_steps)  # lr 0 at step 0
     count("training")
     peak_mem = torch.cuda.max_memory_allocated()
     # The CE backward's chunks, from the contract and not from the code under
@@ -671,7 +840,6 @@ def main(argv) -> int:
     fail_unless(all(math.isfinite(v) for v in losses + gnorms),
                 f"training: loss or grad norm not finite: {losses} {gnorms}")
     fail_unless(losses[-1] < losses[0], f"training: loss did not fall: {losses}")
-    step_s = dt / n_steps
     tps = 8 * 2048 / step_s
     mfu = tps * llama.flops_per_token(train_cfg, 2048) / peak_flops
     print(f"training: LLAMA_BENCH bf16 params, remat, flash + fused CE, 8x2048 tokens per step; "
@@ -683,26 +851,240 @@ def main(argv) -> int:
     print("training grad norms: " + " ".join(f"{v:.5f}" for v in gnorms))
     if profile:
         device_breakdown("training (one step)", lambda: train_step(state, batch))
-        # one more step, not profiled, with CUDA events around the update
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-
-        def timed_update(grads, opt_state, prm):
-            marks[0].record()
-            out = opt.update(grads, opt_state, prm)
-            marks[1].record()
-            return out
-
-        timed_step = parallel.make_train_step(
-            lambda prm, b: llama.loss_fn(prm, b, train_fast),
-            parallel.Optimizer(opt.init, timed_update, opt.learning_rate))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = timed_step(state, batch)
-        torch.cuda.synchronize()
-        step_ms, opt_ms = (time.perf_counter() - t0) * 1e3, marks[0].elapsed_time(marks[1])
-        print(f"training optimizer (global norm + update): {opt_ms:.2f} ms between CUDA events "
-              f"of a {step_ms:.2f} ms step ({opt_ms / step_ms:.1%})")
+        state = optimizer_share("training", lambda prm, b: llama.loss_fn(prm, b, train_fast),
+                                opt, state, batch)
     del state, batch, metrics
+    torch.cuda.empty_cache()
+
+    # ---------------- MoE at Mixtral 8x7B's widths ----------------
+    mix = dataclasses.replace(moe_llama.MIXTRAL_8X7B, param_dtype=torch.bfloat16, remat=True)
+    moe_fast = dataclasses.replace(mix, n_layers=2, attention_impl="flash")
+    moe_plain = dataclasses.replace(moe_fast, attention_impl="xla")
+    moe_score = dataclasses.replace(moe_fast, n_layers=4)
+    for label, c in (("training", moe_fast), ("scoring", moe_score)):
+        print(f"MIXTRAL_8X7B widths (dim {c.dim}, {c.n_heads} heads of hd {c.head_dim}, "
+              f"{c.n_kv_heads} kv heads, ffn {c.ffn_dim}, {c.n_experts} experts top-"
+              f"{c.experts_per_token}, capacity factor {c.capacity_factor}, vocab "
+              f"{c.vocab_size}), bf16, depth cut {mix.n_layers} -> {c.n_layers} layers for "
+              f"{label}: {moe_llama.param_count(c) / 1e9:.3f} B params, "
+              f"{moe_llama.active_param_count(c) / 1e9:.3f} B active per token")
+    opt_m = parallel.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+    mstate = parallel.create_train_state(
+        gen, lambda g: moe_llama.init_params(g, moe_fast, dev), opt_m, dev)
+
+    # MoE check: flash path against the einsum attention path, same weights
+    # and batch; routing pinned to the einsum path's, then free.
+    m_names = ["embed", *(f"blocks.{k}" for k in mstate.params["blocks"]), "final_norm",
+               "lm_head"]
+    m_leaves = parallel.tree_leaves(mstate.params)
+    small = {"tokens": torch.randint(0, mix.vocab_size, (2, 513), generator=gen, device=dev)}
+    plain_calls, fast_calls, free_calls = [], [], []
+    with moe_routing(moe_ops, record=plain_calls):
+        lp = moe_llama.loss_fn(mstate.params, small, moe_plain)
+        gp = torch.autograd.grad(lp, m_leaves)
+    with moe_routing(moe_ops, record=fast_calls, replay=[c[0] for c in plain_calls]):
+        lk = moe_llama.loss_fn(mstate.params, small, moe_fast)
+        gk = torch.autograd.grad(lk, m_leaves)
+    with moe_routing(moe_ops, record=free_calls), torch.no_grad():
+        lfree = moe_llama.loss_fn(mstate.params, small, moe_fast)
+    nl = moe_fast.n_layers
+    fail_unless(len(plain_calls) == len(fast_calls) == 2 * nl and len(free_calls) == nl,
+                f"MoE check: router calls {len(plain_calls)}, {len(fast_calls)}, "
+                f"{len(free_calls)}; expected {2 * nl}, {2 * nl}, {nl}")
+    fail_unless(all(torch.equal(a[1].dispatch, b[1].dispatch)
+                    for a, b in zip(fast_calls, plain_calls)),
+                "MoE check: the pinned flash run routed differently")
+    grad_errs = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                 for n, a, b in zip(m_names, gk, gp)}
+    del gk, gp
+
+    def aux_of(calls):
+        return sum(c[1].aux_loss.item() for c in calls[:nl]) / nl
+
+    aux_p, aux_k, aux_free = aux_of(plain_calls), aux_of(fast_calls), aux_of(free_calls)
+    err_loss = abs(lk.item() - lp.item()) / abs(lp.item())
+    err_aux = abs(aux_k - aux_p) / abs(aux_p)
+    err_loss_free = abs(lfree.item() - lp.item()) / abs(lp.item())
+    err_aux_free = abs(aux_free - aux_p) / abs(aux_p)
+    n_assign = nl * small["tokens"][:, :-1].numel() * mix.experts_per_token
+    moved = sum(int((a[1].dispatch.sum(-1) - b[1].dispatch.sum(-1)).abs().sum().item()) // 2
+                for a, b in zip(free_calls, plain_calls[:nl]))
+    print(f"MoE check (2x512, {nl} layers, bf16, remat), flash vs einsum attention, routing "
+          f"pinned to the einsum path's: loss relative err {err_loss:.3e}, aux loss relative err "
+          f"{err_aux:.3e}; per-tensor gradient relative err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in grad_errs.items()))
+    print(f"MoE check, routing free: {moved} of {n_assign} expert assignments moved "
+          f"({moved / n_assign:.2%}); loss relative err {err_loss_free:.3e}, aux loss relative "
+          f"err {err_aux_free:.3e} (aux {aux_free:.5f} vs {aux_p:.5f})")
+    fail_unless(err_loss <= TRAIN_LOSS_RTOL, f"MoE check: loss relative err {err_loss}")
+    fail_unless(err_aux <= TRAIN_LOSS_RTOL, f"MoE check: aux loss relative err {err_aux}")
+    for n, e in grad_errs.items():
+        fail_unless(e <= TRAIN_GRAD_RTOL, f"MoE check: {n} gradient relative err {e} > "
+                                          f"{TRAIN_GRAD_RTOL}")
+    fail_unless(err_loss_free <= MOE_FREE_RTOL and err_aux_free <= MOE_FREE_RTOL,
+                f"MoE check, routing free: loss err {err_loss_free}, aux err {err_aux_free} > "
+                f"{MOE_FREE_RTOL}")
+    fail_unless(moved <= MOE_FREE_MOVED * n_assign,
+                f"MoE check, routing free: {moved} of {n_assign} assignments moved")
+    del plain_calls, fast_calls, free_calls, lp, lk, lfree, small
+    torch.cuda.empty_cache()
+
+    # ---------------- MoE training phase (main path) ----------------
+    moe_step = parallel.make_train_step(lambda p, b: moe_llama.loss_fn(p, b, moe_fast), opt_m)
+    mbatch = {"tokens": torch.randint(0, mix.vocab_size, (4, 2049), generator=gen, device=dev)}
+    n_moe = 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    mstate, metrics, step_s = timed_steps(moe_step, mstate, mbatch, n_moe)
+    count("moe_training")
+    peak_mem = torch.cuda.max_memory_allocated()
+    per_step = {"flash_attention_fwd": 2 * nl, "flash_attention_bwd_dkv": nl,
+                "flash_attention_bwd_dq": nl}
+    for name in kernels:
+        n = per_step.get(name, 0) * (n_moe + 1)
+        fail_unless(launches[name]["moe_training"] == n,
+                    f"MoE training launched {name} {launches[name]['moe_training']} times, "
+                    f"expected {n}")
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    fail_unless(all(math.isfinite(v) for v in losses + gnorms),
+                f"MoE training: loss or grad norm not finite: {losses} {gnorms}")
+    fail_unless(losses[-1] < losses[0], f"MoE training: loss did not fall: {losses}")
+    n_tok = 4 * 2048
+    tps = n_tok / step_s
+    mfu = tps * moe_flops_per_token(moe_fast, 2048) / peak_flops
+    print(f"MoE training: {nl} layers at Mixtral widths, bf16 params, remat, flash attention, "
+          f"4x2048 tokens per step; {step_s * 1e3:.2f} ms per step (mean of {n_moe} after a "
+          f"warm-up step), {tps:.0f} tokens/s, MFU {mfu:.2%} of {peak_flops / 1e12:.0f} TFLOP/s "
+          f"on active_param_count ({moe_flops_per_token(moe_fast, 2048) / 1e9:.2f} GFLOP per "
+          f"token); peak memory {peak_mem / 2**30:.2f} GiB; launches per step "
+          + ", ".join(f"{k} {launches[k]['moe_training'] // (n_moe + 1)}" for k in kernels))
+    print("MoE training losses: " + " ".join(f"{v:.5f}" for v in losses))
+    print("MoE training grad norms: " + " ".join(f"{v:.5f}" for v in gnorms))
+    if profile:
+        device_breakdown("MoE training (one step)", lambda: moe_step(mstate, mbatch))
+        mstate = optimizer_share("MoE training",
+                                 lambda p, b: moe_llama.loss_fn(p, b, moe_fast), opt_m,
+                                 mstate, mbatch)
+
+    # the dense dispatch's pieces, one layer's forward at the training shape
+    T, E = n_tok, mix.n_experts
+    C = max(4, math.ceil(T * mix.experts_per_token * mix.capacity_factor / E))
+    layer = {k: v[0].detach() for k, v in mstate.params["blocks"].items()}
+    with torch.inference_mode():
+        xt = torch.randn(T, mix.dim, generator=gen, device=dev).bfloat16()
+        router_logits = xt.float() @ layer["router"]
+        gate = moe_ops.top_k_gating(router_logits, k=mix.experts_per_token,
+                                    capacity_factor=mix.capacity_factor)
+        disp, comb = gate.dispatch.bfloat16(), gate.combine.bfloat16()
+        xe = torch.einsum("td,tec->ecd", xt, disp)
+        hmid = torch.einsum("ecd,edf->ecf", xe, layer["w_gate"])
+        ye = torch.einsum("ecf,efd->ecd", hmid, layer["w_down"])
+        pieces = {
+            "top_k_gating": lambda: moe_ops.top_k_gating(
+                router_logits, k=mix.experts_per_token, capacity_factor=mix.capacity_factor),
+            "dispatch einsum": lambda: torch.einsum("td,tec->ecd", xt, disp),
+            "expert einsums (3)": lambda: (
+                torch.einsum("ecd,edf->ecf", xe, layer["w_gate"]),
+                torch.einsum("ecd,edf->ecf", xe, layer["w_up"]),
+                torch.einsum("ecf,efd->ecd", hmid, layer["w_down"])),
+            "combine einsum": lambda: torch.einsum("ecd,tec->td", ye, comb),
+        }
+        piece_ms = {n: time_ms(f, 5) for n, f in pieces.items()}
+    disp_flop = 2.0 * T * E * C * mix.dim
+    expert_flop = 3 * 2.0 * E * C * mix.dim * mix.ffn_dim
+    print(f"MoE dense dispatch, one layer's forward at T {T}, E {E}, C {C}: dispatch and combine "
+          f"einsums {disp_flop / 1e12:.2f} TFLOP each against {expert_flop / 1e12:.2f} TFLOP for "
+          f"the experts; " + ", ".join(f"{n} {v:.3f} ms" for n, v in piece_ms.items()))
+    del mstate, metrics, layer, xt, router_logits, gate, disp, comb, xe, hmid, ye, pieces
+    torch.cuda.empty_cache()
+
+    # ---------------- MoE scoring phase (main path) ----------------
+    sparams = moe_llama.init_params(gen, moe_score, dev)
+    zero()
+    times, losses = [], []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(moe_llama.loss_fn(sparams, mbatch, moe_score).item())
+            times.append(time.perf_counter() - t0)
+    count("moe_scoring")
+    for name in kernels:
+        n = moe_score.n_layers * 3 if name == "flash_attention_fwd" else 0
+        fail_unless(launches[name]["moe_scoring"] == n,
+                    f"MoE scoring launched {name} {launches[name]['moe_scoring']} times, "
+                    f"expected {n}")
+    fail_unless(all(math.isfinite(v) for v in losses), f"MoE scoring loss not finite: {losses}")
+    step = statistics.median(times)
+    print(f"MoE scoring: {moe_score.n_layers} layers at Mixtral widths, bf16, flash attention; "
+          f"loss {losses[-1]:.5f}; {step * 1e3:.2f} ms per 4x2048 batch (median of 3), "
+          f"{n_tok / step:.0f} tokens/s; launches flash "
+          f"{launches['flash_attention_fwd']['moe_scoring']} over 3 batches")
+    if profile:
+        with torch.inference_mode():
+            device_breakdown("MoE scoring (one 4x2048 batch)",
+                             lambda: moe_llama.loss_fn(sparams, mbatch, moe_score))
+    del sparams, mbatch
+    torch.cuda.empty_cache()
+
+    # ---------------- ViT phase (main path) ----------------
+    vcfg = vit.VIT_B_16
+    vopt = parallel.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+    vstate = parallel.create_train_state(gen, lambda g: vit.init_params(g, vcfg, dev), vopt, dev)
+    images = torch.randn(64, vcfg.image_size, vcfg.image_size, vcfg.channels, generator=gen,
+                         device=dev)
+    labels = torch.randint(0, vcfg.num_classes, (64,), generator=gen, device=dev)
+    vbatch = {"image": images, "label": labels}
+    with torch.inference_mode():
+        f32 = dataclasses.replace(vcfg, dtype=torch.float32)
+        lg16 = vit.forward(vstate.params, images[:8], vcfg)
+        lg32 = vit.forward(vstate.params, images[:8], f32)
+    err_vit = (lg16 - lg32).abs().max().item()
+    print(f"ViT check (8 images): bf16 vs f32 activations, logits max abs err {err_vit:.3e} "
+          f"(max |logit| {lg32.abs().max().item():.3f})")
+    fail_unless(lg16.shape == (8, vcfg.num_classes) and err_vit <= VIT_LOGIT_ATOL,
+                f"ViT check: logits {tuple(lg16.shape)}, max abs err {err_vit} > {VIT_LOGIT_ATOL}")
+    vit_step = parallel.make_train_step(lambda p, b: vit.loss_fn(p, b, vcfg), vopt)
+    n_vit = 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    vstate, metrics, step_s = timed_steps(vit_step, vstate, vbatch, n_vit)
+    peak_mem = torch.cuda.max_memory_allocated()
+    times = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = vit.forward(vstate.params, images, vcfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    count("vit")
+    for name in kernels:
+        fail_unless(launches[name]["vit"] == 0, f"ViT launched {name}")
+    losses = [m["loss"].item() for m in metrics]
+    fail_unless(all(math.isfinite(v) for v in losses), f"ViT training loss not finite: {losses}")
+    fail_unless(logits.shape == (64, vcfg.num_classes) and bool(torch.isfinite(logits).all()),
+                f"ViT eval: logits {tuple(logits.shape)} not finite or of the wrong shape")
+    n_tok = 1 + vcfg.n_patches
+    vit_flops = n_tok * (6.0 * vit.param_count(vcfg) + 12 * vcfg.n_layers * vcfg.dim * n_tok)
+    ips = 64 / step_s
+    eval_s = statistics.median(times)
+    print(f"ViT training: VIT_B_16 ({vit.param_count(vcfg) / 1e6:.2f} M params, f32 params, bf16 "
+          f"activations, remat), 64 images of {vcfg.image_size}x{vcfg.image_size}x"
+          f"{vcfg.channels} per step; {step_s * 1e3:.2f} ms per step (mean of {n_vit} after a "
+          f"warm-up step), {ips:.1f} images/s, MFU {ips * vit_flops / peak_flops:.2%} of "
+          f"{peak_flops / 1e12:.0f} TFLOP/s ({vit_flops / 1e9:.2f} GFLOP per image); peak memory "
+          f"{peak_mem / 2**30:.2f} GiB; eval forward {eval_s * 1e3:.2f} ms per 64 images (median "
+          f"of 3), {64 / eval_s:.1f} images/s; launches 0")
+    print("ViT training losses: " + " ".join(f"{v:.5f}" for v in losses))
+    if profile:
+        device_breakdown("ViT training (one step)", lambda: vit_step(vstate, vbatch))
+        vstate = optimizer_share("ViT training", lambda p, b: vit.loss_fn(p, b, vcfg), vopt,
+                                 vstate, vbatch)
+    del vstate, vbatch, images, labels, logits, metrics
     torch.cuda.empty_cache()
 
     record_line = [

@@ -42,6 +42,7 @@ class GenRequest:
     max_tokens: int = 64
     temperature: float = 0.0
     eos_id: Optional[int] = None
+    adapter_id: str = ""  # LoRA adapter ("" = base model)
     # filled during generation
     slot: int = -1
     shard: int = -1

@@ -9,7 +9,7 @@ port's own copy of that format's ``_unflatten``.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch

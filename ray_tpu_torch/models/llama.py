@@ -92,45 +92,76 @@ LLAMA_BENCH = LlamaConfig(
 )
 
 
-def init_params(generator: torch.Generator, config: LlamaConfig,
-                device: DeviceLike = None) -> Params:
-    """Scaled-normal init in config.param_dtype, stacked-layer layout.
-    ``generator`` must live on ``device`` (the GPU unless "cpu" is asked)."""
+def make_dense_init(config: LlamaConfig, device: DeviceLike = None):
+    """Scaled-normal initializer in config.param_dtype (shared by the
+    dense and MoE model families): ``dense(generator, shape, fan_in)``
+    draws a standard normal in f32 on ``device`` (the GPU unless "cpu" is
+    asked) from ``generator``, which must live there, and scales it by
+    1 / sqrt(fan_in)."""
+    dev = resolve_device(device)
+
+    def dense(generator: torch.Generator, shape, fan_in: int) -> torch.Tensor:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+        return (x * (1.0 / math.sqrt(fan_in))).to(config.param_dtype)
+
+    return dense
+
+
+def init_attn_params(config: LlamaConfig, generator: torch.Generator, dense,
+                     device: DeviceLike = None) -> Params:
+    """Stacked attention sublayer params (norms + qkvo), the shared half
+    of both families' block params; wq, wk, wv and wo are drawn from
+    ``generator`` in that order."""
     c = config
     dev = resolve_device(device)
     hd, L = c.head_dim, c.n_layers
-
-    def dense(shape, fan_in):
-        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        return (x * (1.0 / math.sqrt(fan_in))).to(c.param_dtype)
 
     def ones(shape):
         return torch.ones(shape, dtype=c.param_dtype, device=dev)
 
     return {
-        "embed": dense((c.vocab_size, c.dim), c.dim),
+        "attn_norm": ones((L, c.dim)),
+        "wq": dense(generator, (L, c.dim, c.n_heads, hd), c.dim),
+        "wk": dense(generator, (L, c.dim, c.n_kv_heads, hd), c.dim),
+        "wv": dense(generator, (L, c.dim, c.n_kv_heads, hd), c.dim),
+        "wo": dense(generator, (L, c.n_heads, hd, c.dim), c.n_heads * hd),
+        "mlp_norm": ones((L, c.dim)),
+    }
+
+
+def attn_param_count(config: LlamaConfig) -> int:
+    """Per-layer params of the shared attention sublayer + both norms."""
+    c = config
+    return (2 * c.dim + c.dim * c.n_heads * c.head_dim
+            + 2 * c.dim * c.n_kv_heads * c.head_dim
+            + c.n_heads * c.head_dim * c.dim)
+
+
+def init_params(generator: torch.Generator, config: LlamaConfig,
+                device: DeviceLike = None) -> Params:
+    """Scaled-normal init in config.param_dtype, stacked-layer layout.
+    ``generator`` must live on ``device`` (the GPU unless "cpu" is asked).
+    Draw order: embed, wq, wk, wv, wo, w_gate, w_up, w_down, lm_head."""
+    c = config
+    dev = resolve_device(device)
+    dense = make_dense_init(c, dev)
+    L = c.n_layers
+    return {
+        "embed": dense(generator, (c.vocab_size, c.dim), c.dim),
         "blocks": {
-            "attn_norm": ones((L, c.dim)),
-            "wq": dense((L, c.dim, c.n_heads, hd), c.dim),
-            "wk": dense((L, c.dim, c.n_kv_heads, hd), c.dim),
-            "wv": dense((L, c.dim, c.n_kv_heads, hd), c.dim),
-            "wo": dense((L, c.n_heads, hd, c.dim), c.n_heads * hd),
-            "mlp_norm": ones((L, c.dim)),
-            "w_gate": dense((L, c.dim, c.ffn_dim), c.dim),
-            "w_up": dense((L, c.dim, c.ffn_dim), c.dim),
-            "w_down": dense((L, c.ffn_dim, c.dim), c.ffn_dim),
+            **init_attn_params(c, generator, dense, dev),
+            "w_gate": dense(generator, (L, c.dim, c.ffn_dim), c.dim),
+            "w_up": dense(generator, (L, c.dim, c.ffn_dim), c.dim),
+            "w_down": dense(generator, (L, c.ffn_dim, c.dim), c.ffn_dim),
         },
-        "final_norm": ones((c.dim,)),
-        "lm_head": dense((c.dim, c.vocab_size), c.dim),
+        "final_norm": torch.ones((c.dim,), dtype=c.param_dtype, device=dev),
+        "lm_head": dense(generator, (c.dim, c.vocab_size), c.dim),
     }
 
 
 def param_count(config: LlamaConfig) -> int:
     c = config
-    attn = (2 * c.dim + c.dim * c.n_heads * c.head_dim
-            + 2 * c.dim * c.n_kv_heads * c.head_dim
-            + c.n_heads * c.head_dim * c.dim)
-    per_layer = attn + 3 * c.dim * c.ffn_dim
+    per_layer = attn_param_count(c) + 3 * c.dim * c.ffn_dim
     return c.vocab_size * c.dim * 2 + c.n_layers * per_layer + c.dim
 
 

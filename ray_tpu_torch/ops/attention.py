@@ -93,17 +93,18 @@ class _FlashAttention(torch.autograd.Function):
     ``pallas_attention.py`` ``_flash_fwd`` (:407): q, k, v, o and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, block_q, block_kv):
         from .cuda_attention import flash_attention_fwd, flash_attention_plain
 
         if q.device.type == "cuda":
             o, lse = flash_attention_fwd(q, k, v, causal=causal)
         elif q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, causal=causal)
+            o, lse = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                           block_kv=block_kv)
         else:
             raise ValueError(f"flash_attention: unsupported device {q.device}")
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.blocks = causal, dict(block_q=block_q, block_kv=block_kv)
         return o
 
     @staticmethod
@@ -118,16 +119,26 @@ class _FlashAttention(torch.autograd.Function):
                 do = do.contiguous()
             dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal)
         elif do.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=ctx.causal)
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=ctx.causal,
+                                                   **ctx.blocks)
         else:
             raise ValueError(f"flash_attention: unsupported device {do.device}")
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q (B, S, H, hd); k/v (B, T, KVH, hd) -> (B, S, H, hd) in q's dtype."""
+                    causal: bool = True, block_q: int = 512,
+                    block_kv: int = 512) -> torch.Tensor:
+    """q (B, S, H, hd); k/v (B, T, KVH, hd) -> (B, S, H, hd) in q's dtype.
+
+    ``block_q`` and ``block_kv`` are the reference's block sizes. The plain
+    version (CPU tensors) walks q and k/v in blocks of those sizes, forward
+    and backward; the kernels (CUDA tensors) keep their own tiles (128 query
+    rows a CTA, 64 or 128 rows a streamed tile; see the ``csrc`` headers)
+    and ignore them."""
     H, KVH = q.shape[2], k.shape[2]
     if H % KVH != 0:
         raise ValueError(f"n_heads {H} not divisible by n_kv_heads {KVH}")
-    return _FlashAttention.apply(q, k, v, causal)
+    if block_q < 1 or block_kv < 1:
+        raise ValueError(f"block sizes must be positive, got {block_q}, {block_kv}")
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_kv)

@@ -23,7 +23,7 @@ averaging stay with the caller (``models.llama.masked_mean``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,15 +35,34 @@ _TILE_V = 256            # vocab columns per tile (gemm::kBN; rtt_fused_ce_fwd c
 _DLOG_BUDGET = 256 * 2**20
 
 
-def fused_ce_fwd_plain(x: torch.Tensor, w: torch.Tensor,
-                       targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_ce_fwd_plain(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                       block_n: Optional[int] = None, block_v: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the kernel: (lse, target logit), both (N,) f32,
     from f32 products of x and w (exact for bf16 inputs, as the kernel's
-    f32 accumulation). Targets must already be in [0, V)."""
-    logits = x.float() @ w.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(1, targets.long()[:, None])[:, 0]
-    return lse, tgt
+    f32 accumulation). Targets must already be in [0, V). With ``block_n``
+    and ``block_v`` the rows and the vocab are walked in blocks of those
+    sizes, lse as an online logsumexp over the vocab blocks (the
+    reference's ``_fwd_kernel`` loop); without them in one piece."""
+    N, V = x.shape[0], w.shape[1]
+    bn, bv = block_n or max(N, 1), block_v or max(V, 1)
+    lses, tgts = [], []
+    for r0 in range(0, N, bn):
+        xb, tb = x[r0:r0 + bn].float(), targets[r0:r0 + bn].long()
+        m = torch.full((xb.shape[0],), -torch.inf, device=x.device)
+        s = torch.zeros_like(m)
+        tgt = torch.zeros_like(m)
+        for c0 in range(0, V, bv):
+            logits = xb @ w[:, c0:c0 + bv].float()
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            hit = (tb >= c0) & (tb < c0 + logits.shape[1])
+            col = (tb - c0).clamp(0, logits.shape[1] - 1)
+            tgt = tgt + torch.where(hit, logits.gather(1, col[:, None])[:, 0], 0.0)
+        lses.append(m + torch.log(s))
+        tgts.append(tgt)
+    return torch.cat(lses), torch.cat(tgts)
 
 
 def _check_fwd(fn: str, x, w, targets) -> None:
@@ -279,13 +298,13 @@ class _FusedCrossEntropy(torch.autograd.Function):
     ``_vjp_fwd`` (:270-274): x, w, the clamped targets and lse."""
 
     @staticmethod
-    def forward(ctx, x, w, targets):
+    def forward(ctx, x, w, targets, block_n, block_v):
         t = targets.clamp(0, w.shape[1] - 1)
         if x.device.type == "cuda":
             t = t.to(torch.int32).contiguous()
             lse, tgt = fused_ce_fwd(x, w, t)
         elif x.device.type == "cpu":
-            lse, tgt = fused_ce_fwd_plain(x, w, t)
+            lse, tgt = fused_ce_fwd_plain(x, w, t, block_n, block_v)
         else:
             raise ValueError(f"fused_cross_entropy: unsupported device {x.device}")
         ctx.save_for_backward(x, w, t, lse)
@@ -296,18 +315,27 @@ class _FusedCrossEntropy(torch.autograd.Function):
         x, w, t, lse = ctx.saved_tensors
         g = g.float().contiguous()          # f32 per row, as pallas_ce.py:280
         dx, dw = fused_ce_bwd(x, w, t, lse, g)
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
-def fused_cross_entropy(x: torch.Tensor, w: torch.Tensor,
-                        targets: torch.Tensor) -> torch.Tensor:
+def fused_cross_entropy(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                        block_n: int = 128, block_v: int = 512) -> torch.Tensor:
     """Per-token losses (N,) f32 for logits = x @ w against targets.
 
     Out-of-range targets are clamped into [0, V), as the JAX kernel does;
     without the clamp the column match would miss and return lse instead
     of a loss. A CUDA tensor goes to the kernel (or the call raises), a
-    CPU tensor to the plain version."""
-    return _FusedCrossEntropy.apply(x, w, targets)
+    CPU tensor to the plain version.
+
+    ``block_n`` and ``block_v`` are the reference's row and vocab blocks
+    (positional there too). The plain forward walks the rows and the
+    vocab in blocks of those sizes; the kernels keep their own tiles (128
+    rows by 256 vocab columns, ``csrc/wgmma_gemm.cuh``) and ignore them,
+    and the backward walks rows in chunks of ``chunk_rows`` on both
+    devices."""
+    if block_n < 1 or block_v < 1:
+        raise ValueError(f"block sizes must be positive, got {block_n}, {block_v}")
+    return _FusedCrossEntropy.apply(x, w, targets, block_n, block_v)
 
 
 def xla_cross_entropy(x: torch.Tensor, w: torch.Tensor,

@@ -71,6 +71,31 @@ def test_matches_blockwise_reference_and_small_blocks():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=ATOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_block_keywords(causal):
+    """The reference's call flash_attention(q, k, v, causal=..., block_q=16,
+    block_kv=16) works in the port: the plain path walks 16-row blocks,
+    forward and backward, and agrees with the reference's blockwise path
+    and with the port at its default blocks."""
+    q, k, v = _inputs(4, 2, 64, 64, 4, 2, hd=32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    ref = jattn.flash_attention(jq, jk, jv, causal=causal, block_q=16, block_kv=16)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, causal=causal, block_q=16, block_kv=16)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=ATOL)
+    wide = tattn.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), wide.numpy(), atol=ATOL, rtol=ATOL)
+    do = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    jg = jax.vjp(lambda a, b, c: jattn.flash_attention(a, b, c, causal=causal, block_q=16,
+                                                       block_kv=16), jq, jk, jv)[1](
+        jnp.asarray(do))
+    tg = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL, rtol=GRAD_TOL)
+    with pytest.raises(ValueError, match="positive"):
+        tattn.flash_attention(tq, tk, tv, block_q=0)
+
+
 def test_blockwise_accum_masked_block_is_noop():
     """A kv span that starts after some query rows (ring-attention style
     offsets): those rows see a fully masked block first, which must leave

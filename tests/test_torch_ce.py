@@ -49,6 +49,31 @@ def test_plain_kernel_outputs_match_pallas_fwd_call():
     np.testing.assert_allclose(tgt.numpy(), np.asarray(jt), atol=ATOL)
 
 
+@pytest.mark.parametrize("blocks", [(128, 512), (64, 128), (100, 300)])
+def test_reference_block_arguments(blocks):
+    """fused_cross_entropy(x, w, t, block_n, block_v), positional as in the
+    reference: the plain forward walks those blocks (an online logsumexp
+    over the vocab blocks, ragged ones included) and agrees with the
+    Pallas kernel at the reference's own blocks and with the one-piece
+    plain version; the gradients are unchanged."""
+    x, w, t = _problem(5, 256, 128, 1024)
+    tx, tw = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    tt = torch.from_numpy(t)
+    ours = cuda_ce.fused_cross_entropy(tx, tw, tt, *blocks)
+    jx, jw, jt = map(jnp.asarray, (x, w, t))
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(jax_fused(jx, jw, jt, 128, 512)),
+                               atol=ATOL)
+    whole = cuda_ce.fused_cross_entropy(*map(torch.from_numpy, (x, w, t)))
+    np.testing.assert_allclose(ours.detach().numpy(), whole.numpy(), atol=ATOL)
+    wt = np.random.default_rng(6).random(256).astype(np.float32)
+    g = torch.autograd.grad(ours, (tx, tw), torch.from_numpy(wt))
+    jg = jax.grad(lambda a, b: jnp.sum(jax_fused(a, b, jt) * jnp.asarray(wt)), (0, 1))(jx, jw)
+    for a, b in zip(g, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
+    with pytest.raises(ValueError, match="positive"):
+        cuda_ce.fused_cross_entropy(tx, tw, tt, 0, 512)
+
+
 def test_out_of_range_targets_are_clamped():
     x, w, t = _problem(2, 256, 128, 1024, lo=-40, hi=1064)
     assert (t < 0).any() and (t >= 1024).any()

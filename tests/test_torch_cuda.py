@@ -20,7 +20,13 @@ relative to its norm (floored at 1e-3 of the largest row norm, for rows
 that cancel to ~0). The dK/dV kernel sums the GQA group in f32 and
 rounds once, as its plain version does (the reference rounds per head).
 The LLAMA_TINY training path in bf16, kernels against the plain paths,
-is held per parameter tensor at ||g_k - g_p|| / ||g_p|| <= 5e-2.
+is held per parameter tensor at ||g_k - g_p|| / ||g_p|| <= 5e-2, and so
+is a 2-layer MoE at hd 128 with its routing pinned to the plain path's
+(``chip_smoke.moe_routing``): top-k routing is discontinuous, and
+without the pin the bf16 differences of the two attention paths send
+some tokens to other experts (PERF.md). moe_ffn in f32 on the card
+against itself on the CPU: the same dispatch, outputs within atol 1e-4
+(f32 products, TF32 off).
 """
 
 import dataclasses
@@ -28,10 +34,11 @@ import dataclasses
 import pytest
 import torch
 
+from chip_smoke import moe_routing
 from ray_tpu_torch.llm import GenRequest, LlamaEngine
 from ray_tpu_torch import parallel
-from ray_tpu_torch.models import llama, params_from_numpy
-from ray_tpu_torch.ops import attention, cuda_attention, cuda_ce
+from ray_tpu_torch.models import llama, moe_llama, params_from_numpy
+from ray_tpu_torch.ops import attention, cuda_attention, cuda_ce, moe
 
 pytestmark = pytest.mark.cuda
 
@@ -442,3 +449,68 @@ def test_train_steps_on_card(dev):
     assert all(torch.isfinite(torch.tensor(losses))) and m2["step"] == 3
     assert losses[2] < losses[0]
     assert all(torch.isfinite(m["grad_norm"]).item() for m in (m0, m1, m2))
+
+
+def test_moe_flash_matches_xla_on_card(dev):
+    """A 2-layer MoE Llama at hd 128 with 4 experts (bf16, remat): the
+    flash path (the attention kernels) against the einsum path on the same
+    weights and batch, with the routing pinned to the einsum path's:
+    loss, aux loss and every parameter's gradient; each kernel launches
+    once per layer and pass (the forward twice: remat's recompute)."""
+    cfg = moe_llama.MoELlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                                   n_kv_heads=1, ffn_dim=256, max_seq_len=256,
+                                   rope_theta=10000.0, remat=True, n_experts=4)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = parallel.tree_map(lambda t: t.requires_grad_(True),
+                               moe_llama.init_params(gen, cfg, dev))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen, device=dev)
+    mask = torch.ones_like(tokens, dtype=torch.float32)
+    mask[1, -20:] = 0.0
+    batch = {"tokens": tokens, "input_mask": mask}
+    fast = dataclasses.replace(cfg, attention_impl="flash")
+    plain_calls, fast_calls = [], []
+    with moe_routing(moe, record=plain_calls):
+        gp = _grads(params, moe_llama.loss_fn(params, batch, cfg))
+    kernels = (cuda_attention.flash_attention_fwd, cuda_attention.flash_attention_bwd_dkv,
+               cuda_attention.flash_attention_bwd_dq)
+    for k in kernels:
+        k.launches = 0
+    with moe_routing(moe, record=fast_calls, replay=[c[0] for c in plain_calls]):
+        loss_f = moe_llama.loss_fn(params, batch, fast)
+        gk = _grads(params, loss_f)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    assert len(fast_calls) == len(plain_calls) == 2 * cfg.n_layers
+    for (_, a), (_, b) in zip(fast_calls, plain_calls):
+        assert torch.equal(a.dispatch, b.dispatch)
+    aux = [sum(c[1].aux_loss.item() for c in calls[:cfg.n_layers])
+           for calls in (fast_calls, plain_calls)]
+    assert abs(aux[0] - aux[1]) <= 1e-3 * abs(aux[1])
+    with moe_routing(moe, replay=[c[0] for c in plain_calls]), torch.no_grad():
+        loss_p = moe_llama.loss_fn(params, batch, cfg)
+    assert abs(loss_f.item() - loss_p.item()) <= 1e-3 * abs(loss_p.item())
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        err = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert err <= MODEL_GRAD_RTOL, (i, err)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_moe_ffn_on_card_matches_cpu(dev, tied):
+    """moe_ffn in f32 on the card and on the CPU from the same values:
+    the same routing (ties included: a zero router sends every token to
+    experts 0 and 1, in order, past their capacity) and the same output."""
+    cfg = moe.MoEConfig(d_model=128, d_ff=256, n_experts=8, k=2, capacity_factor=1.0)
+    params = moe.init_moe_params(torch.Generator().manual_seed(14), cfg, torch.float32, "cpu")
+    if tied:
+        params["router"].zero_()
+    x = torch.randn(4, 64, 128, generator=torch.Generator().manual_seed(15))
+    mask = (torch.rand(4, 64, generator=torch.Generator().manual_seed(16)) > 0.2).float()
+    out_c, aux_c = moe.moe_ffn(params, x, cfg, mask)
+    gate_c = moe.top_k_gating(x.reshape(-1, 128) @ params["router"], k=2, capacity_factor=1.0)
+    on = {k: v.to(dev) for k, v in params.items()}
+    out_g, aux_g = moe.moe_ffn(on, x.to(dev), cfg, mask.to(dev))
+    gate_g = moe.top_k_gating(x.reshape(-1, 128).to(dev) @ on["router"], k=2,
+                              capacity_factor=1.0)
+    assert torch.equal(gate_g.dispatch.cpu(), gate_c.dispatch)
+    assert (out_g.cpu() - out_c).abs().max().item() <= 1e-4
+    assert abs(aux_g.item() - aux_c.item()) <= 1e-5 * abs(aux_c.item())

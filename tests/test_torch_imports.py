@@ -5,13 +5,15 @@ on the CPU unless asked to."""
 import os
 import subprocess
 import sys
+import typing
 
 import pytest
 import torch
 
 from ray_tpu_torch import parallel, resolve_device
 from ray_tpu_torch.llm import LLMConfig, LlamaEngine
-from ray_tpu_torch.models import llama, params_from_numpy
+from ray_tpu_torch.models import convert, llama, moe_llama, params_from_numpy, vit
+from ray_tpu_torch.ops import init_moe_params
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,6 +36,17 @@ state = parallel.create_train_state(torch.Generator().manual_seed(0),
 step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
 state, m = step(state, {"tokens": torch.zeros((1, 9), dtype=torch.long)})
 assert bool(torch.isfinite(m["loss"]))
+from ray_tpu_torch.ops import moe
+from ray_tpu_torch.models import moe_llama, vit
+from ray_tpu_torch.llm import lora, apply_lora, save_params_npz
+mcfg = moe_llama.MOE_TINY
+mp = moe_llama.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
+assert bool(torch.isfinite(moe_llama.loss_fn(mp, {"tokens": torch.zeros((1, 9), dtype=torch.long)},
+                                             mcfg)))
+vp = vit.init_params(torch.Generator().manual_seed(0), vit.VIT_TINY, "cpu")
+assert vit.forward(vp, torch.zeros((1, 32, 32, 3)), vit.VIT_TINY).shape == (1, 10)
+folded = apply_lora(params, {"lm_head.delta": torch.ones(cfg.dim, cfg.vocab_size).numpy()})
+assert folded["embed"] is params["embed"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
 print("FOREIGN", bad)
@@ -69,6 +82,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         parallel.create_train_state(torch.Generator(), lambda _: params,
                                     parallel.default_optimizer())
+    with pytest.raises(RuntimeError):
+        moe_llama.init_params(torch.Generator(), moe_llama.MOE_TINY)
+    with pytest.raises(RuntimeError):
+        init_moe_params(torch.Generator(), moe_llama.MOE_TINY.moe)
+    with pytest.raises(RuntimeError):
+        vit.init_params(torch.Generator(), vit.VIT_TINY)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -80,3 +99,10 @@ def test_cuda_device_comes_back_with_its_index(monkeypatch):
     assert resolve_device("cuda") == torch.device("cuda", 0)
     assert resolve_device() == torch.device("cuda", 0)
     assert resolve_device("cuda:0") == torch.device("cuda", 0)
+
+
+def test_convert_annotations_resolve():
+    """Every annotation of models/convert.py names something it imports."""
+    hints = typing.get_type_hints(convert._unflatten)
+    assert hints["flat"] == typing.Dict[str, typing.Any]
+    typing.get_type_hints(convert.params_from_numpy)

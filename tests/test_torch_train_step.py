@@ -161,3 +161,53 @@ def test_eval_step_matches_jax_loss():
     assert not out["loss"].requires_grad
     ref = jl.loss_fn(jparams, {"tokens": jnp.asarray(tokens)}, jcfg)
     np.testing.assert_allclose(float(out["loss"]), float(ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 3.0])
+def test_mixed_dtype_tree_matches_optax(grad_scale):
+    """An MoE-like tree, an f32 router beside bf16 experts, through
+    default_optimizer against the optax chain, five updates each from the
+    same state: every leaf keeps its dtype and its moments are in it.
+    optax sums each bf16 leaf's squares in bf16 before the f32 total,
+    the port in f32, so the norms agree to one bf16 step (rtol 2**-8).
+    Unclipped (grad_scale 0.01) the clip is the identity on both sides:
+    bf16 leaves equal optax's bit for bit and the f32 leaf agrees to a
+    few ulps (rtol 1e-6, atol 1e-7). Clipped (3.0), each side divides by
+    its own norm, which Adam's normalisation almost cancels: the f32 leaf
+    within 1e-5 and the bf16 leaves within one bf16 step (rtol 2**-7)."""
+    rng = np.random.default_rng(6)
+    dtypes = {"router": jnp.float32, "w_gate": jnp.bfloat16, "w_up": jnp.bfloat16}
+    jparams = {k: jnp.asarray(rng.standard_normal((4, 8, 6)), dt) for k, dt in dtypes.items()}
+    jopt = jpar.default_optimizer(1e-2, warmup_steps=2, total_steps=10)
+    topt = tpar.default_optimizer(1e-2, warmup_steps=2, total_steps=10)
+    tparams = {k: torch.from_numpy(np.array(v, np.float32)).to(getattr(torch, str(v.dtype)))
+               for k, v in jparams.items()}
+    jstate, tstate = jopt.init(jparams), topt.init(tparams)
+    for _ in range(5):
+        adam = jstate[1][0]
+        for tt, jt in ((tparams, jparams), (tstate.mu, adam.mu), (tstate.nu, adam.nu)):
+            for k in dtypes:
+                tt[k].copy_(torch.from_numpy(np.array(jt[k], np.float32)))
+        grads = {k: jnp.asarray(rng.standard_normal(v.shape) * grad_scale, v.dtype)
+                 for k, v in jparams.items()}
+        gnorm = float(optax.global_norm(grads))
+        upd, jstate = jopt.update(grads, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        tgrads = {k: torch.from_numpy(np.array(v, np.float32)).to(tparams[k].dtype)
+                  for k, v in grads.items()}
+        tstate, tnorm = topt.update(tgrads, tstate, tparams)
+        np.testing.assert_allclose(float(tnorm), gnorm, rtol=2.0 ** -8)
+        assert (gnorm >= 1.0) == (grad_scale > 1)
+        adam = jstate[1][0]
+        for tt, jt in ((tparams, jparams), (tstate.mu, adam.mu), (tstate.nu, adam.nu)):
+            for k, dt in dtypes.items():
+                t, j = tt[k], jt[k]
+                assert str(t.dtype).split(".")[-1] == jnp.dtype(dt).name == str(j.dtype)
+                t, j = t.float().numpy(), np.asarray(j, np.float32)
+                if grad_scale > 1:
+                    tol = dict(atol=1e-5) if dt == jnp.float32 else dict(rtol=2.0 ** -7)
+                    np.testing.assert_allclose(t, j, err_msg=k, **tol)
+                elif dt == jnp.float32:
+                    np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-7, err_msg=k)
+                else:
+                    np.testing.assert_array_equal(t, j, err_msg=k)
