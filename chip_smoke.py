@@ -42,6 +42,19 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    folded tree (f32 compute on the bf16 weights) answers 4 greedy
    requests, whose tokens must equal the argmax of ``forward`` on the
    folded tree and differ from the unadapted engine's on one at least;
+6b. runtime phase: ``ray_tpu_torch.init(num_cpus=2)`` must detect the
+   card; a ``LlamaActor`` with ``num_gpus=1`` is placed in the placement
+   group of ``LLMConfig(model_config=LLAMA_BENCH).placement_bundles()``
+   and must see one card, the driver's (by UUID); both processes build
+   ``LLAMA_BENCH`` in bf16 from a fresh generator seeded 0 and their
+   parameter digests must be equal; the actor scores the 8 x 2049 batch,
+   put into the object store as a CPU tensor (loss within ``LOSS_RTOL``
+   of the in-process ``loss_fn``'s, printed bit for bit, timed against
+   it) and answers 8 greedy requests (tokens equal to an in-process
+   engine's); a CUDA tensor goes to a GPU actor and back, and a task
+   without a GPU that gets it must raise; then the runtime's round trips,
+   put/get rates and ``/dev/shm``, and after ``shutdown()`` no worker
+   process may be left;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -68,7 +81,11 @@ dense one does and no CE kernel (its loss is the CE on full logits, as in
 the reference), the MoE scoring path the flash forward once per layer.
 The serving and LoRA serving paths launch none: like the JAX engine, the
 engine's attention is the plain cached einsum; ViT has no kernel (its
-attention is an einsum in the reference too). ``--profile`` adds a
+attention is an einsum in the reference too). The runtime paths
+(``runtime_scoring``, ``runtime_serving``) are counted in the actor's
+process, zeroed there just before the call and read just after it:
+scoring must launch the flash forward once per layer and the CE forward
+once, serving none. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
 (whose printed times then carry the profiler's cost), of one training
 step, with the optimizer update's share of it, of one MoE training step,
@@ -320,6 +337,242 @@ def optimizer_share(label, loss_fn, opt, state, batch):
     print(f"{label} optimizer (global norm + update): {opt_ms:.2f} ms between CUDA events "
           f"of a {step_ms:.2f} ms step ({opt_ms / step_ms:.1%})")
     return state
+
+
+def _worker_pids() -> list:
+    """Pids of the port's runtime workers on this machine."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{d}/stat") as f:
+                zombie = f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except OSError:
+            continue
+        if b"ray_tpu_torch._private.worker_process" in cmd and not zombie:
+            pids.append(int(d))
+    return pids
+
+
+def runtime_phase(cfg, dev, smi: str, kernel_names) -> dict:
+    """The runtime phase: ``LLAMA_BENCH`` scored and served by a
+    ``LlamaActor`` that the port's runtime pins to the card, inside the
+    placement group of ``LLMConfig.placement_bundles()``; a CUDA tensor
+    through the object store; the runtime's own costs. Returns the actor's
+    launch counts per main path ({"runtime_scoring": {...},
+    "runtime_serving": {...}}), read in the actor's process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import GenRequest, LLMConfig, LlamaActor, LlamaEngine
+    from ray_tpu_torch.llm._internal.actor import param_digest
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import (PlacementGroupSchedulingStrategy, placement_group,
+                                    remove_placement_group)
+
+    def tag(line):
+        print(f"runtime [{smi}]: {line}")
+
+    rt.init(num_cpus=2)
+    gpus = rt.cluster_resources().get("GPU", 0)
+    fail_unless(gpus == 1, f"runtime: detected {gpus} GPUs, want 1")
+    llm_cfg = LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=1024,
+                        engine_kwargs={"prefill_chunk": 256})
+    bundles, strategy = llm_cfg.placement_bundles()
+    fail_unless((bundles, strategy) == ([{"GPU": 1.0, "CPU": 1.0}], "PACK"),
+                f"runtime: placement_bundles() gave {bundles}, {strategy}")
+    pg = placement_group(bundles, strategy=strategy)
+    fail_unless(pg.wait(60), "runtime: placement group not ready within 60 s")
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1)(LlamaActor).options(
+        scheduling_strategy=PlacementGroupSchedulingStrategy(pg, 0)).remote(llm_cfg)
+    info = rt.get(actor.info.remote(), timeout=300)  # placed and built, or GetTimeoutError
+    start_s = time.perf_counter() - t0
+    props = torch.cuda.get_device_properties(dev)
+    tag(f"actor pid {info['pid']} in the {strategy} group of {bundles} after {start_s:.2f} s: "
+        f"CUDA_VISIBLE_DEVICES={info['cuda_visible_devices']!r}, sees "
+        f"{info['device_count']} card(s), {info.get('name')} {info.get('uuid')}; the driver's "
+        f"card {props.name} {props.uuid}")
+    fail_unless(info["device_count"] == 1, f"runtime: the actor sees {info['device_count']} cards")
+    fail_unless(info.get("uuid") == str(props.uuid) and info.get("name") == props.name,
+                "runtime: the actor's card is not the driver's")
+
+    # the same weights in both processes, from the same fresh seeded generator
+    params = llm_cfg.load_params(dev)
+    mine = param_digest(params)
+    theirs = rt.get(actor.param_digest.remote(), timeout=300)
+    tag(f"parameter digest: driver {mine[:16]}, actor {theirs[:16]}")
+    fail_unless(mine == theirs, "runtime: the actor's parameters differ from the driver's")
+
+    # scoring: the batch goes through the object store as a CPU tensor
+    fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 2049), generator=torch.Generator().manual_seed(1))
+    tok_ref = rt.put(tokens)
+    rt.get(actor.reset_launches.remote(), timeout=60)
+    loss_actor = rt.get(actor.score.remote(tok_ref), timeout=300)
+    counted = {"runtime_scoring": rt.get(actor.launches.remote(), timeout=60)}
+    on_dev = tokens.to(dev)
+    with torch.inference_mode():
+        loss_here = llama.loss_fn(params, {"tokens": on_dev}, fast).item()
+    want = dict.fromkeys(kernel_names, 0)
+    want.update(flash_attention_fwd=cfg.n_layers, fused_ce_fwd=1)
+    fail_unless(counted["runtime_scoring"] == want,
+                f"runtime scoring launched {counted['runtime_scoring']}, want {want}")
+    err = abs(loss_actor - loss_here) / abs(loss_here)
+    tag(f"scoring (8x2048 through the object store): actor loss {loss_actor!r}, in-process "
+        f"{loss_here!r}, relative {err:.3e}, bit-equal {loss_actor == loss_here}; launches in "
+        f"the actor {counted['runtime_scoring']}")
+    fail_unless(err <= LOSS_RTOL, f"runtime: scoring loss relative err {err} > {LOSS_RTOL}")
+    actor_ms, here_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rt.get(actor.score.remote(tok_ref), timeout=300)
+        actor_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            llama.loss_fn(params, {"tokens": tokens.to(dev)}, fast).item()
+        here_ms.append((time.perf_counter() - t0) * 1e3)
+    a_ms, h_ms = statistics.median(actor_ms), statistics.median(here_ms)
+    nvcc_s = rt.get(actor.kernel_build_seconds.remote(), timeout=60)
+    tag(f"scoring time (median of 3): actor call {a_ms:.2f} ms, in-process {h_ms:.2f} ms "
+        f"(tokens from the host each time), runtime cost {a_ms - h_ms:.2f} ms; the actor "
+        + ("loaded the kernel library the driver built" if nvcc_s == 0.0
+           else f"built the kernel library itself in {nvcc_s:.2f} s"))
+
+    # serving: 8 greedy requests in the actor and in an in-process engine
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 601, 8)]
+
+    def requests():
+        return [GenRequest(request_id=str(i), prompt_ids=p, max_tokens=32)
+                for i, p in enumerate(prompts)]
+
+    rt.get(actor.reset_launches.remote(), timeout=60)
+    t0 = time.perf_counter()
+    served = rt.get(actor.generate.remote(requests()), timeout=600)
+    serve_s = [time.perf_counter() - t0]
+    counted["runtime_serving"] = rt.get(actor.launches.remote(), timeout=60)
+    t0 = time.perf_counter()
+    rt.get(actor.generate.remote(requests()), timeout=600)  # warm: the decode shapes ran
+    serve_s.append(time.perf_counter() - t0)
+    eng = LlamaEngine(cfg, params, max_batch=8, max_seq=1024, prefill_chunk=256, device=dev)
+    local_s = []
+    for _ in range(2):
+        local = requests()
+        pending = list(local)
+        t0 = time.perf_counter()
+        while pending or eng.num_active():
+            while pending and eng.has_capacity():
+                eng.add_request(pending.pop(0))
+            eng.step()
+        local_s.append(time.perf_counter() - t0)
+    same = sum(served[r.request_id] == r.generated for r in local)
+    tag(f"serving: 8 greedy requests, 32 new tokens each: actor {serve_s[0]:.3f} s (first, "
+        f"counted) and {serve_s[1]:.3f} s (again), in-process engine {local_s[0]:.3f} s and "
+        f"{local_s[1]:.3f} s; {same} of 8 token lists equal; launches in the actor "
+        f"{counted['runtime_serving']}")
+    fail_unless(same == 8, f"runtime: {8 - same} of 8 served token lists differ")
+    fail_unless(counted["runtime_serving"] == dict.fromkeys(kernel_names, 0),
+                f"runtime serving launched {counted['runtime_serving']}")
+    del eng, local, params, on_dev
+    rt.kill(actor)
+    remove_placement_group(pg)
+
+    # a CUDA tensor through the object store: to a GPU actor and back, and
+    # refused by a task that has no GPU
+    @rt.remote(num_gpus=1)
+    class Probe:
+        def take(self, t):
+            return str(t.device), t
+
+        def ping(self):
+            return None
+
+        def fetch(self, refs):
+            t0 = time.perf_counter()
+            t = rt.get(refs[0], timeout=120)
+            return time.perf_counter() - t0, t.shape
+
+    @rt.remote(num_gpus=0)
+    def fetch_without_gpu(refs):
+        import os as _os
+
+        try:
+            rt.get(refs[0], timeout=120)
+        except RuntimeError as e:
+            return _os.environ.get("CUDA_VISIBLE_DEVICES"), str(e)
+        return _os.environ.get("CUDA_VISIBLE_DEVICES"), None
+
+    @rt.remote
+    def noop():
+        return None
+
+    probe = Probe.remote()
+    x = torch.randn(1024, 1024, device=dev).to(torch.bfloat16)
+    x_ref = rt.put(x)
+    where, back = rt.get(probe.take.remote(x_ref), timeout=300)
+    visible, refused = rt.get(fetch_without_gpu.remote([x_ref]), timeout=300)
+    tag(f"CUDA tensor: put from {x.device}, arrived on {where} in the GPU actor, came back on "
+        f"{back.device} equal {torch.equal(back, x)}; a num_gpus=0 task "
+        f"(CUDA_VISIBLE_DEVICES={visible!r}) raised: {refused}")
+    fail_unless(where == "cuda:0" and back.device == dev and torch.equal(back, x),
+                "runtime: the CUDA tensor did not round-trip through the GPU actor")
+    fail_unless(refused is not None and "CUDA tensor" in refused,
+                "runtime: get of a CUDA tensor in a task without a GPU did not raise")
+
+    # the runtime's own costs
+    rt.get([noop.remote() for _ in range(8)], timeout=120)
+    rtt = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        rt.get(noop.remote(), timeout=60)
+        rtt.append((time.perf_counter() - t0) * 1e3)
+    art = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        rt.get(probe.ping.remote(), timeout=60)
+        art.append((time.perf_counter() - t0) * 1e3)
+    big = torch.randn(128 * 2**20 // 128, 128).to(torch.bfloat16)  # 256 MiB
+    gib = big.numel() * 2 / 2**30
+    put_s, get_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        big_ref = rt.put(big)
+        put_s.append(time.perf_counter() - t0)
+        dt, shape = rt.get(probe.fetch.remote([big_ref]), timeout=300)
+        fail_unless(tuple(shape) == tuple(big.shape), f"runtime: got a tensor of {shape}")
+        get_s.append(dt)
+        del big_ref
+    # the same bytes as a numpy array, which a getter maps without a copy
+    # (read-only, as in the reference); a tensor is copied out of the segment
+    arr = big.view(torch.uint8).numpy()
+    np_put, np_get = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        arr_ref = rt.put(arr)
+        np_put.append(time.perf_counter() - t0)
+        np_get.append(rt.get(probe.fetch.remote([arr_ref]), timeout=300)[0])
+        del arr_ref
+    shm = os.statvfs("/dev/shm")
+    tag(f"task round trip {statistics.median(rtt):.3f} ms, actor call round trip "
+        f"{statistics.median(art):.3f} ms (medians of 200); put {gib / statistics.median(put_s):.2f}"
+        f" GiB/s, get in another process {gib / statistics.median(get_s):.2f} GiB/s (256 MiB bf16 "
+        f"CPU tensor, medians of 3; the same bytes as a numpy array: put "
+        f"{gib / statistics.median(np_put):.2f}, get {gib / statistics.median(np_get):.2f} GiB/s);"
+        f" /dev/shm {shm.f_blocks * shm.f_frsize / 2**30:.1f} GiB, "
+        f"{shm.f_bavail * shm.f_frsize / 2**30:.1f} GiB free")
+
+    pids = _worker_pids()
+    rt.shutdown()
+    deadline = time.time() + 30
+    while _worker_pids() and time.time() < deadline:
+        time.sleep(0.1)
+    left = _worker_pids()
+    tag(f"shutdown: {len(pids)} worker processes before, {len(left)} left")
+    fail_unless(not left, f"runtime: worker processes left after shutdown: {left}")
+    return counted
 
 
 def main(argv) -> int:
@@ -783,6 +1036,13 @@ def main(argv) -> int:
           f"tree; {n_diff} of 4 differ from the unadapted engine's; launches "
           + ", ".join(f"{k} {launches[k]['lora_serving']}" for k in kernels))
     del lora_eng, base_eng, folded, params
+    torch.cuda.empty_cache()
+
+    # ---------------- runtime phase (main paths) ----------------
+    # the actor's process has its own CUDA context: room next to this cache
+    for path, counts in runtime_phase(cfg, dev, smi, list(kernels)).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
     torch.cuda.empty_cache()
 
     # ---------------- training check ----------------

@@ -1,4 +1,4 @@
-"""Model families of the port (PyTorch counterparts of ``ray_tpu.models``):
+"""Model families of the port (PyTorch counterparts of ``ray_tpu/models``):
 dense Llama, MoE Llama and ViT."""
 
 from . import llama, moe_llama, vit

@@ -514,3 +514,46 @@ def test_moe_ffn_on_card_matches_cpu(dev, tied):
     assert torch.equal(gate_g.dispatch.cpu(), gate_c.dispatch)
     assert (out_g.cpu() - out_c).abs().max().item() <= 1e-4
     assert abs(aux_g.item() - aux_c.item()) <= 1e-5 * abs(aux_c.item())
+
+
+def test_gpu_actor_pins_its_card_and_takes_a_cuda_tensor(dev):
+    """The port's runtime on the card: a num_gpus=1 actor sees one card
+    (the driver's, by UUID) through CUDA_VISIBLE_DEVICES; a CUDA tensor
+    put by the driver arrives on the actor's card and comes back equal;
+    a task without a GPU that gets it raises."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        assert rt.cluster_resources().get("GPU") == torch.cuda.device_count()
+
+        @rt.remote(num_gpus=1)
+        class OnCard:
+            def where(self):
+                import os
+
+                props = torch.cuda.get_device_properties(0)
+                return os.environ["CUDA_VISIBLE_DEVICES"], torch.cuda.device_count(), str(props.uuid)
+
+            def echo(self, t):
+                return str(t.device), t
+
+        @rt.remote
+        def fetch(refs):
+            return rt.get(refs[0], timeout=60)
+
+        a = OnCard.remote()
+        visible, count, uuid = rt.get(a.where.remote(), timeout=120)
+        assert count == 1
+        assert uuid == str(torch.cuda.get_device_properties(int(visible)).uuid)
+        t = torch.randn(513, 1024, device=dev).to(torch.bfloat16)
+        ref = rt.put(t)
+        where, back = rt.get(a.echo.remote(ref), timeout=120)
+        assert where == "cuda:0"
+        assert back.device.type == "cuda" and back.dtype == torch.bfloat16
+        assert torch.equal(back, t)
+        with pytest.raises(rt.exceptions.TaskError, match="CUDA tensor"):
+            rt.get(fetch.remote([ref]), timeout=120)
+        rt.kill(a)
+    finally:
+        rt.shutdown()

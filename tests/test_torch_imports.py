@@ -47,18 +47,34 @@ vp = vit.init_params(torch.Generator().manual_seed(0), vit.VIT_TINY, "cpu")
 assert vit.forward(vp, torch.zeros((1, 32, 32, 3)), vit.VIT_TINY).shape == (1, 10)
 folded = apply_lora(params, {"lm_head.delta": torch.ones(cfg.dim, cfg.vocab_size).numpy()})
 assert folded["embed"] is params["embed"]
+ray_tpu_torch.init(num_cpus=1, max_workers=1)
+@ray_tpu_torch.remote
+def worker_foreign():
+    import sys
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+@ray_tpu_torch.remote
+class Adder:
+    def add(self, t):
+        return t + 1
+worker_bad = ray_tpu_torch.get(worker_foreign.remote(), timeout=60)
+actor = Adder.remote()
+assert bool((ray_tpu_torch.get(actor.add.remote(torch.zeros(3)), timeout=60) == 1).all())
+ray_tpu_torch.shutdown()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
 print("FOREIGN", bad)
+print("WORKER FOREIGN", worker_bad)
 """
 
 
 def test_port_imports_neither_jax_nor_ray_tpu():
-    # a subprocess: this test process has jax loaded by tests/conftest.py
+    # a subprocess: this test process has jax loaded by tests/conftest.py;
+    # the probe also starts the port's runtime, whose worker must be clean
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "FOREIGN []" in out.stdout, out.stdout
+    assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
+    assert "WORKER FOREIGN []" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
