@@ -55,6 +55,22 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    without a GPU that gets it must raise; then the runtime's round trips,
    put/get rates and ``/dev/shm``, and after ``shutdown()`` no worker
    process may be left;
+6c. trainer phase: ``LLAMA_BENCH`` trained as in the training phase
+   (bf16 parameters from a fresh generator seeded 0, remat, flash + fused
+   CE, the same optimizer) for 4 steps on the runtime phase's 8 x 2049
+   batch, first in this process, then by a ``TorchTrainer`` gang of one
+   ``use_gpu`` worker in its own ``init(num_cpus=2)``, the batch in
+   ``train_loop_config`` as a CPU tensor: the worker reports each step,
+   commits ``Checkpoint.from_torch(state)`` after step 2, fails on purpose
+   before step 3 on its first attempt, is restarted by
+   ``FailureConfig(max_failures=1)`` and resumes from that checkpoint
+   (``CheckpointConfig(num_to_keep=1)``). Both attempts must see one card,
+   the driver's by UUID, from two pids; the 4 losses must match this
+   process's within ``TRAIN_LOSS_RTOL`` (bit-equality printed); the run
+   must end at ``training_iteration`` 4 with one checkpoint kept and no
+   worker process left after ``shutdown()``; printed: placement and
+   first-step seconds, step ms beside this process's, checkpoint bytes,
+   save and commit seconds, restart-to-resumed seconds, ``fit()`` seconds;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -85,7 +101,9 @@ attention is an einsum in the reference too). The runtime paths
 (``runtime_scoring``, ``runtime_serving``) are counted in the actor's
 process, zeroed there just before the call and read just after it:
 scoring must launch the flash forward once per layer and the CE forward
-once, serving none. ``--profile`` adds a
+once, serving none. The ``trainer`` path is counted in the gang's
+worker, zeroed there before each step and read after it: each step must
+launch all seven kernels as a training step does. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
 (whose printed times then carry the profiler's cost), of one training
 step, with the optimizer update's share of it, of one MoE training step,
@@ -575,6 +593,239 @@ def runtime_phase(cfg, dev, smi: str, kernel_names) -> dict:
     return counted
 
 
+# The trainer phase: steps, the step whose state is checkpointed, and the
+# step before which the first attempt fails on purpose.
+TRAINER_STEPS, TRAINER_CHECKPOINT_AT, TRAINER_FAIL_AT = 4, 2, 3
+
+
+def trainer_setup(cfg, dev):
+    """(train state, train step) of the trainer phase, the same in the
+    driver and in the gang's worker: ``cfg`` (LLAMA_BENCH, bf16 parameters)
+    with remat, flash attention and the fused CE, parameters from a fresh
+    generator seeded 0 (as ``LLMConfig.load_params``), and
+    ``default_optimizer(1e-4, warmup_steps=10, total_steps=1000)``."""
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.models import llama
+
+    tcfg = dataclasses.replace(cfg, remat=True, attention_impl="flash", ce_impl="fused")
+    opt = parallel.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = parallel.create_train_state(gen, lambda g: llama.init_params(g, tcfg, dev), opt, dev)
+    return state, parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, tcfg), opt)
+
+
+def trainer_loop(config):
+    """The train loop of the trainer phase, run by the gang's worker.
+
+    Each step zeroes the seven launch counters of this process, runs the
+    train step and reports its loss, grad norm, host-clock ms (ending in a
+    synchronize) and the counts. After step ``checkpoint_at`` it reports
+    ``Checkpoint.from_torch(state)``; on the first attempt only (no marker
+    file yet) it raises before step ``fail_at``. A restarted worker resumes
+    from ``get_checkpoint()``. Events with their wall-clock times go to
+    ``config["log"]``, one JSON object a line."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._native import build
+    from ray_tpu_torch.ops import cuda_attention, cuda_ce
+
+    def note(**event):
+        with open(config["log"], "a") as f:
+            f.write(json.dumps(event) + "\n")
+
+    dev = torch.device("cuda", 0)
+    first = not os.path.exists(config["marker"])
+    props = torch.cuda.get_device_properties(dev)
+    note(event="start", attempt=1 if first else 2, t=time.time(), pid=os.getpid(),
+         visible=os.environ.get("CUDA_VISIBLE_DEVICES"), count=torch.cuda.device_count(),
+         name=props.name, uuid=str(props.uuid))
+    state, step = trainer_setup(config["cfg"], dev)
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = ckpt.to_torch(target=state, device=dev)
+        torch.cuda.synchronize()
+        note(event="resumed", t=time.time(), load_s=time.perf_counter() - t0,
+             from_step=state.step, path=ckpt.path)
+    wrappers = {n: getattr(cuda_attention, n, None) or getattr(cuda_ce, n)
+                for n in config["kernel_names"]}
+    batch = {"tokens": config["tokens"].to(dev)}
+    for i in range(state.step, config["steps"]):
+        if first and i + 1 == config["fail_at"]:
+            open(config["marker"], "w").close()
+            note(event="fail", t=time.time(), before_step=i + 1)
+            raise RuntimeError(f"planned failure before step {i + 1}")
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        metrics = {"step": m["step"], "loss": m["loss"].item(),
+                   "grad_norm": m["grad_norm"].item(), "step_ms": ms,
+                   "launches": {n: w.launches for n, w in wrappers.items()},
+                   "pid": os.getpid(), "nvcc_s": build.build_seconds}
+        if m["step"] != config["checkpoint_at"]:
+            train.report(metrics)
+            continue
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(dir=config["scratch"])
+        ckpt = train.Checkpoint.from_torch(state, path=tmp)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        train.report(metrics, checkpoint=ckpt)  # commits: a copytree into run storage
+        commit_s = time.perf_counter() - t0
+        shutil.rmtree(tmp)
+        note(event="checkpoint", step=m["step"], bytes=nbytes, save_s=save_s,
+             commit_s=commit_s)
+
+
+def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
+    """The trainer phase: ``LLAMA_BENCH`` trained by a one-GPU
+    ``TorchTrainer`` gang that checkpoints, fails once on purpose, is
+    restarted by ``FailureConfig`` and resumes from the checkpoint; every
+    step's loss is held against the same steps run in this process first.
+    Returns the worker's launch counts summed over the steps
+    ({"trainer": {...}}), each step's counted in the worker."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    def tag(line):
+        print(f"trainer [{smi}]: {line}")
+
+    tokens = torch.randint(0, cfg.vocab_size, (8, 2049), generator=torch.Generator().manual_seed(1))
+    state, step = trainer_setup(cfg, dev)
+    batch = {"tokens": tokens.to(dev)}
+    here, here_ms = [], []
+    for _ in range(TRAINER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        here.append(m["loss"].item())
+        torch.cuda.synchronize()
+        here_ms.append((time.perf_counter() - t0) * 1e3)
+    del state, step, batch, m
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    fs = os.statvfs(root)
+    tag(f"storage {root}: {fs.f_bavail * fs.f_frsize / 2**30:.1f} GiB free")
+    config = {"cfg": cfg, "tokens": tokens, "steps": TRAINER_STEPS,
+              "checkpoint_at": TRAINER_CHECKPOINT_AT, "fail_at": TRAINER_FAIL_AT,
+              "kernel_names": list(kernel_names), "log": os.path.join(root, "events.jsonl"),
+              "marker": os.path.join(root, "failed_once"), "scratch": os.path.join(root, "tmp")}
+    os.makedirs(config["scratch"])
+
+    class Collect:
+        def __init__(self):
+            self.rows = []
+
+        def on_result(self, metrics):
+            self.rows.append(metrics)
+
+    collect = Collect()
+    rt.init(num_cpus=2)
+    try:
+        trainer = train.TorchTrainer(
+            trainer_loop, train_loop_config=config,
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(
+                name="llama_bench", storage_path=os.path.join(root, "runs"), callbacks=[collect],
+                failure_config=train.FailureConfig(max_failures=1),
+                checkpoint_config=train.CheckpointConfig(num_to_keep=1)))
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+        pids = _worker_pids()
+    finally:
+        rt.shutdown()
+    deadline = time.time() + 30
+    while _worker_pids() and time.time() < deadline:
+        time.sleep(0.1)
+    left = _worker_pids()
+    try:
+        with open(config["log"]) as f:
+            events = [json.loads(line) for line in f]
+        run_dir = os.path.join(root, "runs", "llama_bench")
+        kept = sorted(d for d in os.listdir(run_dir) if d.startswith("checkpoint_"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    fail_unless(result.error is None, f"trainer: fit() ended in error: {result.error}")
+    starts = [e for e in events if e["event"] == "start"]
+    props = torch.cuda.get_device_properties(dev)
+    for e in starts:
+        tag(f"attempt {e['attempt']}: worker pid {e['pid']}, CUDA_VISIBLE_DEVICES="
+            f"{e['visible']!r}, sees {e['count']} card(s), {e['name']} {e['uuid']}")
+    fail_unless([e["attempt"] for e in starts] == [1, 2],
+                f"trainer: attempts {[e['attempt'] for e in starts]}, want [1, 2]")
+    fail_unless(starts[0]["pid"] != starts[1]["pid"], "trainer: the restart reused the pid")
+    for e in starts:
+        fail_unless(e["count"] == 1 and e["uuid"] == str(props.uuid),
+                    f"trainer: attempt {e['attempt']} saw {e['count']} cards, {e['uuid']}; "
+                    f"the driver's card is {props.uuid}")
+    (fail,) = [e for e in events if e["event"] == "fail"]
+    (saved,) = [e for e in events if e["event"] == "checkpoint"]
+    (resumed,) = [e for e in events if e["event"] == "resumed"]
+    fail_unless(resumed["from_step"] == TRAINER_CHECKPOINT_AT,
+                f"trainer: resumed from step {resumed['from_step']}")
+    steps = [r["step"] for r in collect.rows]
+    fail_unless(steps == list(range(1, TRAINER_STEPS + 1)), f"trainer: reported steps {steps}")
+    fail_unless(result.metrics["training_iteration"] == TRAINER_STEPS,
+                f"trainer: training_iteration {result.metrics['training_iteration']}")
+    fail_unless(len(kept) == 1 and result.checkpoint is not None
+                and os.path.basename(result.checkpoint.path) == kept[0],
+                f"trainer: checkpoints kept {kept}, result's {result.checkpoint}")
+    fail_unless(not left, f"trainer: worker processes left after shutdown: {left}")
+    losses = [r["loss"] for r in collect.rows]
+    gnorms = " ".join(f"{r['grad_norm']:.5f}" for r in collect.rows)
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, here)]
+    tag(f"losses, worker: {' '.join(repr(v) for v in losses)}; in-process: "
+        f"{' '.join(repr(v) for v in here)}; max relative err {max(errs):.3e}, bit-equal "
+        f"{losses == here}; grad norms {gnorms}")
+    fail_unless(max(errs) <= TRAIN_LOSS_RTOL,
+                f"trainer: loss relative err {max(errs)} > {TRAIN_LOSS_RTOL}")
+    n_rows = tokens.shape[0] * (tokens.shape[1] - 1)
+    ce_chunks = -(-n_rows // (256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128))
+    want = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd_dkv": cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers, "fused_ce_fwd": 1,
+            "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
+            "fused_ce_bwd_dw": ce_chunks}
+    for r in collect.rows:
+        fail_unless(r["launches"] == want,
+                    f"trainer: step {r['step']} launched {r['launches']}, want {want}")
+    counted = {n: sum(r["launches"][n] for r in collect.rows) for n in kernel_names}
+    t_attempt1 = starts[0]["t"] - t_fit
+    later = [r["step_ms"] for r in collect.rows if r["step"] not in (1, TRAINER_FAIL_AT)]
+    tag(f"placement: the first worker started its loop {t_attempt1:.2f} s after fit(); its first "
+        f"step {collect.rows[0]['step_ms']:.2f} ms, the restarted worker's first step "
+        f"{collect.rows[TRAINER_FAIL_AT - 1]['step_ms']:.2f} ms; kernel library in the worker: "
+        + ", ".join("the driver's" if r["nvcc_s"] == 0.0 else f"built in {r['nvcc_s']:.2f} s"
+                    for r in (collect.rows[0], collect.rows[TRAINER_FAIL_AT - 1])))
+    worker_ms = " ".join(f"{r['step_ms']:.2f}" for r in collect.rows)
+    tag(f"step ms, worker: {worker_ms} "
+        f"(median of the steps not first in their process {statistics.median(later):.2f}); "
+        f"in-process: {' '.join(f'{v:.2f}' for v in here_ms)} (median of steps 2-"
+        f"{TRAINER_STEPS} {statistics.median(here_ms[1:]):.2f})")
+    tag(f"checkpoint after step {saved['step']}: {saved['bytes']} bytes, from_torch "
+        f"{saved['save_s']:.2f} s, report's commit (copytree) {saved['commit_s']:.2f} s; "
+        f"restart to resumed {resumed['t'] - fail['t']:.2f} s (of which to_torch "
+        f"{resumed['load_s']:.2f} s); kept {kept}")
+    tag(f"fit() {fit_s:.2f} s; training_iteration {result.metrics['training_iteration']}; "
+        f"launches per step in the worker {want}; {len(pids)} worker processes before "
+        f"shutdown, {len(left)} after")
+    return {"trainer": counted}
+
+
 def main(argv) -> int:
     profile = argv == ["--profile"]
     if argv and not profile:
@@ -1041,6 +1292,13 @@ def main(argv) -> int:
     # ---------------- runtime phase (main paths) ----------------
     # the actor's process has its own CUDA context: room next to this cache
     for path, counts in runtime_phase(cfg, dev, smi, list(kernels)).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
+
+    # ---------------- trainer phase (main path) ----------------
+    # the worker's process has its own CUDA context: room next to this cache
+    for path, counts in trainer_phase(cfg, dev, smi, list(kernels)).items():
         for name in kernels:
             launches[name][path] = counts[name]
     torch.cuda.empty_cache()

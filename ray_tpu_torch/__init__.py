@@ -5,8 +5,10 @@ The JAX package ``ray_tpu`` stays the reference; this package imports
 single-node runtime core (``init``/``remote``/``get``/``put``/``wait``,
 tasks, actors, the shared-memory object store with torch tensors as
 first-class values, placement groups, GPUs pinned to workers through
-``CUDA_VISIBLE_DEVICES`` where the reference pins TPU chips), the Llama
-family (``models.llama``: forward, loss and gradients, remat), MoE Llama
+``CUDA_VISIBLE_DEVICES`` where the reference pins TPU chips), Train on
+that runtime (``train``: ``TorchTrainer`` gangs with GPU-pinned workers,
+reports, checkpoints and restarts; ``air``: its configs and results), the
+Llama family (``models.llama``: forward, loss and gradients, remat), MoE Llama
 (``models.moe_llama`` on ``ops.moe``) and ViT (``models.vit``), the
 serving engine (``llm.LlamaEngine``) with LoRA folding, the LLM
 configuration and a GPU actor for it (``llm``), training on one device

@@ -557,3 +557,83 @@ def test_gpu_actor_pins_its_card_and_takes_a_cuda_tensor(dev):
         rt.kill(a)
     finally:
         rt.shutdown()
+
+
+def test_torch_trainer_trains_on_the_card_through_every_kernel(dev, tmp_path):
+    """A one-GPU TorchTrainer gang (nccl by default) trains LLAMA_TINY at
+    hd 64 (bf16 params, remat, flash + fused) for two steps: the worker
+    is pinned one card, the driver's; each step's loss equals the same
+    step in this process (relative 1e-4, chip_smoke's TRAIN_LOSS_RTOL);
+    and each step, counted in the worker, launches all seven kernels."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, n_heads=2, n_kv_heads=1, remat=True,
+                              param_dtype=torch.bfloat16, attention_impl="flash",
+                              ce_impl="fused")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129),
+                           generator=torch.Generator().manual_seed(12))
+    opt = parallel.default_optimizer(1e-3, warmup_steps=1, total_steps=10)
+    state = parallel.create_train_state(torch.Generator(device=dev).manual_seed(11),
+                                        lambda g: llama.init_params(g, cfg, dev), opt)
+    step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+    here = []
+    for _ in range(2):
+        state, m = step(state, {"tokens": tokens.to(dev)})
+        here.append(m["loss"].item())
+    del state
+
+    def loop(config):
+        import os
+
+        import torch
+        import torch.distributed as dist
+
+        from ray_tpu_torch import parallel
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops import cuda_attention, cuda_ce
+
+        kernels = (cuda_attention.flash_attention_fwd, cuda_attention.flash_attention_bwd_dkv,
+                   cuda_attention.flash_attention_bwd_dq, cuda_ce.fused_ce_fwd,
+                   cuda_ce.fused_ce_bwd_dlog, cuda_ce.fused_ce_bwd_dx, cuda_ce.fused_ce_bwd_dw)
+        cfg, dev = config["cfg"], torch.device("cuda", 0)
+        opt = parallel.default_optimizer(1e-3, warmup_steps=1, total_steps=10)
+        state = parallel.create_train_state(torch.Generator(device=dev).manual_seed(11),
+                                            lambda g: llama.init_params(g, cfg, dev), opt)
+        step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+        batch = {"tokens": config["tokens"].to(dev)}
+        for _ in range(2):
+            for k in kernels:
+                k.launches = 0
+            state, m = step(state, batch)
+            loss = m["loss"].item()
+            train.report({"loss": loss, "launches": [k.launches for k in kernels],
+                          "backend": dist.get_backend(),
+                          "visible": os.environ["CUDA_VISIBLE_DEVICES"],
+                          "uuid": str(torch.cuda.get_device_properties(0).uuid)})
+
+    class Collect:
+        def __init__(self):
+            self.rows = []
+
+        def on_result(self, metrics):
+            self.rows.append(metrics)
+
+    collect = Collect()
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        result = train.TorchTrainer(
+            loop, train_loop_config={"cfg": cfg, "tokens": tokens},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(storage_path=str(tmp_path), callbacks=[collect]),
+        ).fit()
+    finally:
+        rt.shutdown()
+    assert result.error is None, result.error
+    assert [r["training_iteration"] for r in collect.rows] == [1, 2]
+    for row, want in zip(collect.rows, here):
+        assert row["backend"] == "nccl" and len(row["visible"].split(",")) == 1
+        assert row["uuid"] == str(torch.cuda.get_device_properties(dev).uuid)
+        assert abs(row["loss"] - want) <= 1e-4 * abs(want), (row["loss"], want)
+        # 2 layers, remat: the flash forward twice a layer; 2 x 128 rows: one CE chunk
+        assert row["launches"] == [4, 2, 2, 1, 1, 1, 1]

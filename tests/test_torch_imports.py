@@ -1,6 +1,7 @@
-"""The port stands alone: importing ray_tpu_torch and running it pulls in
-neither JAX nor the ray_tpu package, and its entry points refuse to run
-on the CPU unless asked to."""
+"""The port stands alone: importing ray_tpu_torch (its train and air
+libraries included) and running it pulls in neither JAX nor the ray_tpu
+package, in the driver, in a runtime worker or in a train worker, and its
+entry points refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -59,11 +60,21 @@ class Adder:
 worker_bad = ray_tpu_torch.get(worker_foreign.remote(), timeout=60)
 actor = Adder.remote()
 assert bool((ray_tpu_torch.get(actor.add.remote(torch.zeros(3)), timeout=60) == 1).all())
+ray_tpu_torch.kill(actor)
+import shutil, tempfile
+from ray_tpu_torch import air, train
+def loop():
+    import sys
+    train.report({"foreign": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))})
+storage = tempfile.mkdtemp()
+result = train.DataParallelTrainer(loop, run_config=air.RunConfig(storage_path=storage)).fit()
+shutil.rmtree(storage)
 ray_tpu_torch.shutdown()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
 print("FOREIGN", bad)
 print("WORKER FOREIGN", worker_bad)
+print("TRAIN WORKER FOREIGN", result.metrics["foreign"])
 """
 
 
@@ -74,7 +85,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
-    assert "WORKER FOREIGN []" in out.stdout, out.stdout
+    assert "\nWORKER FOREIGN []" in out.stdout, out.stdout
+    assert "TRAIN WORKER FOREIGN []" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -16,6 +16,8 @@ pooled workers each; every get has a timeout.
 """
 
 import os
+import shutil
+import tempfile
 import time
 
 import pytest
@@ -100,16 +102,33 @@ def pinning(side):
 
 def fractional(side):
     rt, key, opt, env = SIDES[side]
+    # The 0.5 task pins no id, and a task that pins none may be given an
+    # idle worker that an earlier task pinned (then it sees that worker's
+    # ids). So the 1.5 task, which takes the worker `pinning` pinned one
+    # id to, holds it busy until the 0.5 task has run: the 0.5 task
+    # cannot be placed there, whatever the timing.
+    marks = tempfile.mkdtemp()
+    started, half_ran = os.path.join(marks, "started"), os.path.join(marks, "half_ran")
 
     @rt.remote(**{opt: 1.5})
-    def one_and_a_half():
+    def one_and_a_half(started, half_ran):
+        open(started, "w").close()
+        deadline = time.time() + T
+        while not os.path.exists(half_ran) and time.time() < deadline:
+            time.sleep(0.01)
         return os.environ.get(env)
 
     @rt.remote(**{opt: 0.5})
-    def half():
+    def half(half_ran):
+        open(half_ran, "w").close()
         return os.environ.get(env)
 
-    ids15, ids05 = rt.get([one_and_a_half.remote(), half.remote()], timeout=T)
+    ref15 = one_and_a_half.remote(started, half_ran)
+    deadline = time.time() + T
+    while not os.path.exists(started) and time.time() < deadline:
+        time.sleep(0.01)
+    ids15, ids05 = rt.get([ref15, half.remote(half_ran)], timeout=T)
+    shutil.rmtree(marks)
     return len(_ids(ids15)), len(_ids(ids05)), _wait_avail(rt, key, 2.0)
 
 
