@@ -71,6 +71,26 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    worker process left after ``shutdown()``; printed: placement and
    first-step seconds, step ms beside this process's, checkpoint bytes,
    save and commit seconds, restart-to-resumed seconds, ``fit()`` seconds;
+6d. serve phase, in its own ``init(num_cpus=2)`` that must detect the
+   card: (a) ``serve_scoring``, a deployment with ``num_gpus=1`` whose
+   ``@serve.batch(max_batch_size=8)`` method takes one 2049-token row per
+   request and scores the stacked rows in one forward (flash attention,
+   fused CE; ``LLAMA_BENCH`` from a fresh generator seeded 0, its digest
+   equal to the driver's): eight concurrent handle calls must make one
+   batch of 8 whose per-request losses match the driver's rows of the
+   same forward within ``LOSS_RTOL`` (bit-equality printed), timed
+   against it (median of 3); then ``serve.delete``, and the card must
+   return to the pool; (b) ``serve_llm``, ``serve.run(build_openai_app(
+   LLMConfig(LLAMA_BENCH, ...)))`` with the LoRA phase's adapter
+   directory: eight concurrent completions (the runtime phase's prompts,
+   32 greedy tokens) must equal an in-process engine's tokens with the
+   right ``usage`` and ``finish_reason``, a streamed request
+   (``generate_stream``) its tokens, and a request naming the adapter an
+   in-process engine's on the folded tree (and differ from the base's).
+   Each replica must see one card, the driver's by UUID, and be
+   constructed exactly once (the hub's actor table and creation events,
+   which also give the constructor's seconds); after ``shutdown()`` no
+   worker process may be left;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -101,7 +121,9 @@ attention is an einsum in the reference too). The runtime paths
 (``runtime_scoring``, ``runtime_serving``) are counted in the actor's
 process, zeroed there just before the call and read just after it:
 scoring must launch the flash forward once per layer and the CE forward
-once, serving none. The ``trainer`` path is counted in the gang's
+once, serving none; so must ``serve_scoring`` and ``serve_llm`` in their
+replicas' processes (zeroed and read through handle calls, and through
+``__ray_call__`` on the OpenAI app's replica). The ``trainer`` path is counted in the gang's
 worker, zeroed there before each step and read after it: each step must
 launch all seven kernels as a training step does. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
@@ -826,7 +848,358 @@ def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
     return {"trainer": counted}
 
 
+def row_losses(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """Each row's mean next-token loss of a (B, S+1) token batch, in one
+    forward: ``llama.loss_fn``'s fused path without its final mean (with
+    ``attention_impl="flash"``, the flash forward once per layer and the
+    fused CE forward once)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import cuda_ce
+
+    inputs, targets, _ = llama.unpack_batch({"tokens": tokens})
+    B, S = inputs.shape
+    x = llama.forward_hidden(params, inputs, cfg)
+    nll = cuda_ce.fused_cross_entropy(x.reshape(B * S, cfg.dim), params["lm_head"].to(cfg.dtype),
+                                      targets.reshape(B * S))
+    return nll.reshape(B, S).mean(dim=1)
+
+
+def process_probe(server, reset: bool = False) -> dict:
+    """Runs in a Serve replica's process, on its user object: the
+    process, the card it sees, where the object's engine runs, and the
+    kernels' launch counters (zeroed after reading if ``reset``)."""
+    from ray_tpu_torch.llm._internal.actor import _kernels
+
+    counts = {name: w.launches for name, w in _kernels().items()}
+    if reset:
+        for w in _kernels().values():
+            w.launches = 0
+    props = torch.cuda.get_device_properties(0) if torch.cuda.is_available() else None
+    engine = getattr(server, "engine", None)
+    return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "count": torch.cuda.device_count() if props is not None else 0,
+            "name": props.name if props is not None else None,
+            "uuid": str(props.uuid) if props is not None else None,
+            "engine_device": str(engine.device) if engine is not None else None,
+            "launches": counts}
+
+
+def replica_probe(replica, reset: bool = False) -> dict:
+    """``process_probe`` through ``__ray_call__`` on a replica's actor."""
+    return process_probe(replica.instance, reset)
+
+
+def constructions(client, keep) -> list:
+    """(actor id, seconds its creation waited to be placed, seconds its
+    constructor took) of each actor row that ``keep`` selects, from the
+    hub's actor table and task events (an actor's creation task has its
+    id). Every replica a controller starts is one such actor."""
+    events = {e["task_id"]: e for e in client.list_state("tasks")}
+    out = []
+    for a in client.list_state("actors"):
+        if keep(a):
+            e = events.get(a["actor_id"], {})
+            out.append((a["actor_id"],
+                        e.get("started_at", math.nan) - e.get("submitted_at", math.nan),
+                        e.get("finished_at", math.nan) - e.get("started_at", math.nan)))
+    return out
+
+
+def serve_phase(cfg, dev, smi: str, kernel_names, adapter_path: str) -> dict:
+    """The serve phase: ``LLAMA_BENCH`` scored by a ``@serve.batch``
+    deployment and served by ``build_openai_app``, each in a Serve replica
+    that the port's runtime pins to the card. Returns the replicas'
+    launch counts per main path ({"serve_scoring": {...}, "serve_llm":
+    {...}}), read in the replica's process."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.llm import (GenRequest, LLMConfig, LlamaEngine, apply_lora,
+                                   build_openai_app, load_lora_adapter)
+    from ray_tpu_torch.llm._internal.actor import param_digest
+
+    def tag(line):
+        print(f"serve [{smi}]: {line}")
+
+    props = torch.cuda.get_device_properties(dev) if dev.type == "cuda" else None
+    want_zero = dict.fromkeys(kernel_names, 0)
+    counted = {}
+
+    def gpu_replicas():
+        return constructions(client, lambda a: a["resources"].get("GPU", 0) > 0)
+
+    rt.init(num_cpus=2)
+    client = worker.get_client()
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0)
+        fail_unless(gpus == 1, f"serve: detected {gpus} GPUs, want 1")
+
+        # ---- (a) serve_scoring: @serve.batch through K1 and K4 ----
+        @serve.deployment(name="scorer", max_ongoing_requests=8,
+                          ray_actor_options={"num_gpus": 1})
+        class Scorer:
+            """LLAMA_BENCH on the replica's card (a fresh generator seeded
+            0); each request is one (S+1,) token row, and a batch of up to
+            8 is scored in one forward."""
+
+            def __init__(self, cfg, device):
+                from ray_tpu_torch.llm import LLMConfig
+
+                self.params = LLMConfig(model_config=cfg).load_params(device)
+                self.dev = self.params["embed"].device
+                self.cfg = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+                self.batches = []
+
+            def info(self, reset=False):
+                return process_probe(self, reset)
+
+            def digest(self):
+                from ray_tpu_torch.llm._internal.actor import param_digest
+
+                return param_digest(self.params)
+
+            def batch_sizes(self):
+                return list(self.batches)
+
+            @serve.batch(max_batch_size=8, batch_wait_timeout_s=2.0)
+            async def __call__(self, rows):
+                self.batches.append(len(rows))
+                with torch.inference_mode():
+                    losses = row_losses(self.params, torch.stack(rows).to(self.dev), self.cfg)
+                    return [(v, os.getpid()) for v in losses.tolist()]
+
+        device = None if dev.type == "cuda" else "cpu"  # None: the GPU
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        t0 = time.perf_counter()
+        handle = serve.run(Scorer.bind(cfg, device))
+        run_s = time.perf_counter() - t0
+        info = handle.info.remote().result(timeout_s=600)
+        first_s = time.perf_counter() - t0
+        reps = gpu_replicas()
+        ((_, *ctrl),) = constructions(client, lambda a: a["name"] == serve.CONTROLLER_NAME)
+        tag(f"serve_scoring: serve.run returned after {run_s:.2f} s (the controller waited "
+            f"{ctrl[0]:.2f} s for a worker, its constructor {ctrl[1]:.2f} s), first answer after "
+            f"{first_s:.2f} s; replica constructions {len(reps)}, constructor "
+            + ", ".join(f"{c:.2f} s (placed after {w:.2f} s)" for _, w, c in reps)
+            + f"; replica pid {info['pid']}, CUDA_VISIBLE_DEVICES={info['visible']!r}, sees "
+            f"{info['count']} card(s), {info['name']} {info['uuid']}; the driver's card "
+            f"{props.name if props else None} {props.uuid if props else None}")
+        fail_unless(len(reps) == 1, f"serve_scoring: {len(reps)} replicas were constructed")
+        fail_unless(info["count"] == 1 and props is not None and info["uuid"] == str(props.uuid),
+                    "serve_scoring: the replica's card is not the driver's")
+        params = LLMConfig(model_config=cfg).load_params(dev)
+        mine, theirs = param_digest(params), handle.digest.remote().result(timeout_s=300)
+        tag(f"parameter digest: driver {mine[:16]}, replica {theirs[:16]}")
+        fail_unless(mine == theirs, "serve_scoring: the replica's parameters differ")
+
+        fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+        tokens = torch.randint(0, cfg.vocab_size, (8, 2049),
+                               generator=torch.Generator().manual_seed(1))
+
+        def score_batch():
+            resps = [handle.remote(tokens[i]) for i in range(8)]
+            return [r.result(timeout_s=300) for r in resps]
+
+        handle.info.remote(True).result(timeout_s=60)  # launch counters to 0
+        served = score_batch()
+        counted["serve_scoring"] = handle.info.remote().result(timeout_s=60)["launches"]
+        sizes = handle.batch_sizes.remote().result(timeout_s=60)
+        with torch.inference_mode():
+            here = row_losses(params, tokens.to(dev), fast).tolist()
+        got = [v for v, _ in served]
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, here)]
+        tag(f"serve_scoring: 8 concurrent handle calls, one 2049-token row each: batches "
+            f"{sizes}, pids {sorted({p for _, p in served})}; per-request losses "
+            f"{' '.join(repr(v) for v in got)}; driver's rows {' '.join(repr(v) for v in here)}; "
+            f"max relative err {max(errs):.3e}, bit-equal {got == here}; launches in the "
+            f"replica {counted['serve_scoring']}")
+        want = dict(want_zero, flash_attention_fwd=cfg.n_layers, fused_ce_fwd=1)
+        fail_unless(counted["serve_scoring"] == want,
+                    f"serve_scoring launched {counted['serve_scoring']}, want {want}")
+        fail_unless(sizes == [8], f"serve_scoring: the replica saw batches {sizes}, want [8]")
+        fail_unless({p for _, p in served} == {info["pid"]},
+                    "serve_scoring: a request was answered by another process")
+        fail_unless(max(errs) <= LOSS_RTOL,
+                    f"serve_scoring: loss relative err {max(errs)} > {LOSS_RTOL}")
+        handle_ms, here_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            score_batch()
+            handle_ms.append((time.perf_counter() - t0) * 1e3)
+            sync()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                row_losses(params, tokens.to(dev), fast).tolist()
+            here_ms.append((time.perf_counter() - t0) * 1e3)
+        sizes = handle.batch_sizes.remote().result(timeout_s=60)
+        noop_ms = []
+        for _ in range(3):  # the same 8 calls' Serve path around a method that does nothing
+            t0 = time.perf_counter()
+            [r.result(timeout_s=60) for r in [handle.batch_sizes.remote() for _ in range(8)]]
+            noop_ms.append((time.perf_counter() - t0) * 1e3)
+        h_ms, d_ms = statistics.median(handle_ms), statistics.median(here_ms)
+        tag(f"serve_scoring time (median of 3 batches of 8): handle {h_ms:.2f} ms, in-process "
+            f"{d_ms:.2f} ms (tokens from the host each time), Serve's cost {h_ms - d_ms:.2f} ms; "
+            f"8 concurrent calls of a method that does nothing {statistics.median(noop_ms):.2f} "
+            f"ms (median of 3); batches {sizes}")
+        fail_unless(sizes == [8] * 4, f"serve_scoring: the replica saw batches {sizes}")
+        fail_unless(len(gpu_replicas()) == 1, "serve_scoring: the replica was constructed again")
+        serve.delete("scorer")
+        deadline = time.time() + 60
+        while rt.available_resources().get("GPU", 0) < 1 and time.time() < deadline:
+            time.sleep(0.1)
+        fail_unless(rt.available_resources().get("GPU", 0) == 1,
+                    "serve_scoring: the card did not return to the pool after serve.delete")
+
+        # ---- (b) serve_llm: the OpenAI app, streaming, a LoRA adapter ----
+        adapter_dir = os.path.dirname(adapter_path)
+        adapter_id = os.path.basename(adapter_path)[:-len(".npz")]
+        engine_kwargs = {"prefill_chunk": 256}
+        if device is not None:
+            engine_kwargs["device"] = device
+        local_kwargs = dict(engine_kwargs, device=dev)  # the in-process engines
+        llm_cfg = LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=1024,
+                            engine_kwargs=engine_kwargs,
+                            lora_config={"dynamic_lora_loading_path": adapter_dir,
+                                         "max_adapters_per_replica": 2})
+        app = build_openai_app(llm_cfg)
+        fail_unless(app.deployment.ray_actor_options == {"num_gpus": 1.0},
+                    f"serve_llm: the replica asks for {app.deployment.ray_actor_options}")
+        before = {r[0] for r in gpu_replicas()}
+        t0 = time.perf_counter()
+        handle = serve.run(app)
+        run_s = time.perf_counter() - t0
+        stats = handle.engine_stats.remote().result(timeout_s=600)
+        first_s = time.perf_counter() - t0
+        reps = [r for r in gpu_replicas() if r[0] not in before]
+        (replica,) = rt.get(rt.get_actor(serve.CONTROLLER_NAME).get_replicas.remote(
+            app.deployment.name), timeout=60)
+        where = rt.get(replica.__ray_call__.remote(replica_probe, True), timeout=60)
+        tag(f"serve_llm: serve.run returned after {run_s:.2f} s, first answer (engine_stats "
+            f"{stats}) after {first_s:.2f} s; replica constructions {len(reps)}, constructor "
+            + ", ".join(f"{c:.2f} s (placed after {w:.2f} s)" for _, w, c in reps)
+            + f"; replica pid {where['pid']}, CUDA_VISIBLE_DEVICES={where['visible']!r}, sees "
+            f"{where['count']} card(s), {where['name']} {where['uuid']}, engine on "
+            f"{where['engine_device']}")
+        fail_unless(len(reps) == 1, f"serve_llm: {len(reps)} replicas were constructed")
+        fail_unless(where["count"] == 1 and props is not None and where["uuid"] == str(props.uuid),
+                    "serve_llm: the replica's card is not the driver's")
+
+        rng = np.random.default_rng(7)  # the runtime phase's prompts
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(64, 601, 8)]
+
+        def complete_all():
+            """8 concurrent completions, one thread each: (seconds for all,
+            each request's seconds, the answers)."""
+            answers, latency = [None] * 8, [None] * 8
+
+            def complete(i):
+                t = time.perf_counter()
+                answers[i] = handle.remote({"prompt": prompts[i], "max_tokens": 32}).result(
+                    timeout_s=600)
+                latency[i] = time.perf_counter() - t
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=complete, args=(i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(700)
+            fail_unless(all(a is not None for a in answers),
+                        "serve_llm: a completion did not return")
+            return time.perf_counter() - t0, latency, answers
+
+        batch_s, latency, answers = complete_all()
+        counted["serve_llm"] = rt.get(replica.__ray_call__.remote(replica_probe), timeout=60)[
+            "launches"]
+        batch2_s, latency2, answers2 = complete_all()  # again: the decode shapes ran
+
+        t0 = time.perf_counter()
+        stream, ttft = [], None
+        for tok in handle.options(method_name="generate_stream", stream=True).remote(
+                prompts[0], 32):
+            ttft = ttft if ttft is not None else time.perf_counter() - t0
+            stream.append(tok)
+        stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        adapted = handle.remote({"model": adapter_id, "prompt": prompts[0],
+                                 "max_tokens": 32}).result(timeout_s=600)
+        adapter_s = time.perf_counter() - t0
+        after = rt.get(replica.__ray_call__.remote(replica_probe), timeout=60)
+
+        eng = LlamaEngine(cfg, params, max_batch=8, max_seq=1024, **local_kwargs)
+        local = [GenRequest(request_id=str(i), prompt_ids=p, max_tokens=32)
+                 for i, p in enumerate(prompts)]
+        local_s = []
+        for _ in range(2):
+            local = [GenRequest(request_id=str(i), prompt_ids=p, max_tokens=32)
+                     for i, p in enumerate(prompts)]
+            pending = list(local)
+            t0 = time.perf_counter()
+            while pending or eng.num_active():
+                while pending and eng.has_capacity():
+                    eng.add_request(pending.pop(0))
+                eng.step()
+            local_s.append(time.perf_counter() - t0)
+        folded = apply_lora(params, load_lora_adapter(adapter_path))
+        lora_eng = LlamaEngine(cfg, folded, max_batch=8, max_seq=1024, **local_kwargs)
+        lora_want = lora_eng.generate(prompts[0], max_tokens=32)
+        same = sum(a["choices"][0]["token_ids"] == r.generated == b["choices"][0]["token_ids"]
+                   for a, b, r in zip(answers, answers2, local))
+        fields_ok = all(
+            a["object"] == "text_completion" and a["model"] == llm_cfg.model_id
+            and a["choices"][0]["index"] == 0 and a["choices"][0]["finish_reason"] == "length"
+            and a["usage"] == {"prompt_tokens": len(p), "completion_tokens": 32,
+                               "total_tokens": len(p) + 32}
+            for a, p in zip(answers, prompts))
+        for label, b_s, lat in (("first, counted", batch_s, latency),
+                                ("again", batch2_s, latency2)):
+            tps = [32 / s for s in lat]
+            tag(f"serve_llm: 8 concurrent completions ({label}), 32 greedy tokens each, prompts "
+                f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens: {b_s:.3f} s for all, "
+                f"per request {min(lat):.3f}-{max(lat):.3f} s ({min(tps):.1f}-{max(tps):.1f} "
+                f"tokens/s each, {8 * 32 / b_s:.1f} tokens/s together)")
+        tag(f"serve_llm: the in-process engine: {local_s[0]:.3f} s and {local_s[1]:.3f} s for the "
+            f"same 8 requests; {same} of 8 token lists equal the in-process engine's in both "
+            f"rounds; usage, finish_reason and fields right: {fields_ok}")
+        tag(f"serve_llm: streamed (generate_stream): first token after {ttft * 1e3:.1f} ms, "
+            f"32 tokens after {stream_s:.3f} s, equal to the in-process engine's "
+            f"{stream == local[0].generated}; adapter {adapter_id!r} by \"model\": "
+            f"{adapter_s:.3f} s (its engine folded and built on first use), tokens equal to an "
+            f"in-process engine's on the folded tree {adapted['choices'][0]['token_ids'] == lora_want}"
+            f", differ from the base's {adapted['choices'][0]['token_ids'] != local[0].generated}"
+            f"; launches in the replica {counted['serve_llm']}; pid {after['pid']}")
+        fail_unless(same == 8, f"serve_llm: {8 - same} of 8 served token lists differ")
+        fail_unless(fields_ok, f"serve_llm: wrong response fields: {answers[0]}")
+        fail_unless(stream == local[0].generated, "serve_llm: streamed tokens differ")
+        fail_unless(adapted["model"] == adapter_id
+                    and adapted["choices"][0]["token_ids"] == lora_want,
+                    "serve_llm: the adapter's tokens differ from the folded engine's")
+        fail_unless(adapted["choices"][0]["token_ids"] != local[0].generated,
+                    "serve_llm: the adapter changed no token")
+        fail_unless(counted["serve_llm"] == want_zero,
+                    f"serve_llm launched {counted['serve_llm']}")
+        fail_unless(after["pid"] == where["pid"] and len(gpu_replicas()) == 2,
+                    "serve_llm: the replica was constructed again")
+        del eng, lora_eng, folded, params, local
+        pids = _worker_pids()
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+    deadline = time.time() + 30
+    while _worker_pids() and time.time() < deadline:
+        time.sleep(0.1)
+    left = _worker_pids()
+    tag(f"shutdown: {len(pids)} worker processes before, {len(left)} left")
+    fail_unless(not left, f"serve: worker processes left after shutdown: {left}")
+    return counted
+
+
 def main(argv) -> int:
+    t_main = time.perf_counter()
     profile = argv == ["--profile"]
     if argv and not profile:
         print(f"usage: {sys.argv[0]} [--profile]", file=sys.stderr)
@@ -1303,6 +1676,13 @@ def main(argv) -> int:
             launches[name][path] = counts[name]
     torch.cuda.empty_cache()
 
+    # ---------------- serve phase (main paths) ----------------
+    # each replica's process has its own CUDA context: room next to this cache
+    for path, counts in serve_phase(cfg, dev, smi, list(kernels), adapter_path).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
+
     # ---------------- training check ----------------
     train_cfg = dataclasses.replace(cfg, remat=True)
     train_fast = dataclasses.replace(train_cfg, attention_impl="flash", ce_impl="fused")
@@ -1611,6 +1991,7 @@ def main(argv) -> int:
              **record[name])
         for name, (_, src, replaces) in kernels.items()
     ]
+    print(f"wall [{smi}]: {time.perf_counter() - t_main:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": record_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -7,11 +7,16 @@ tasks, actors, the shared-memory object store with torch tensors as
 first-class values, placement groups, GPUs pinned to workers through
 ``CUDA_VISIBLE_DEVICES`` where the reference pins TPU chips), Train on
 that runtime (``train``: ``TorchTrainer`` gangs with GPU-pinned workers,
-reports, checkpoints and restarts; ``air``: its configs and results), the
+reports, checkpoints and restarts; ``air``: its configs and results), Serve
+on that runtime (``serve``: deployments, handles, ``@serve.batch``,
+multiplexing, streaming, the HTTP and gRPC ingress, replicas pinned to
+GPUs through ``num_gpus``), the
 Llama family (``models.llama``: forward, loss and gradients, remat), MoE Llama
 (``models.moe_llama`` on ``ops.moe``) and ViT (``models.vit``), the
 serving engine (``llm.LlamaEngine``) with LoRA folding, the LLM
-configuration and a GPU actor for it (``llm``), training on one device
+configuration, a GPU actor for it and its Serve deployments
+(``llm``: ``LLMServer``, ``OpenAIServer``, ``build_llm_app``,
+``build_openai_app``), training on one device
 (``parallel``: train state, optimizer, train and eval steps), and
 hand-written sm_90a kernels for the flash-attention forward and backward
 and the fused lm-head cross-entropy forward and backward (``ops``). Entry

@@ -5511,7 +5511,7 @@ class Hub:
             # (util/state.summarize_serve) can estimate percentiles and
             # batch efficiency without a second scrape
             self._merge_shard_metrics()
-            prefix = "ray_tpu_serve_"
+            prefix = "ray_tpu_torch_serve_"
             rows: Dict[tuple, dict] = {}
             for (mname, tags), m in self.metrics.items():
                 if not mname.startswith(prefix):

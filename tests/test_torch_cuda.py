@@ -637,3 +637,42 @@ def test_torch_trainer_trains_on_the_card_through_every_kernel(dev, tmp_path):
         assert abs(row["loss"] - want) <= 1e-4 * abs(want), (row["loss"], want)
         # 2 layers, remat: the flash forward twice a layer; 2 x 128 rows: one CE chunk
         assert row["launches"] == [4, 2, 2, 1, 1, 1, 1]
+
+
+def test_gpu_deployment_sees_the_drivers_card_and_computes(dev):
+    """Serve on the card: a num_gpus=1 deployment's replica sees one card,
+    the driver's by UUID, through CUDA_VISIBLE_DEVICES, and answers a
+    product of two CPU tensors (1 MiB each, so they ride Serve's payload
+    plane) computed on its card, equal to the same product here within
+    f32 rounding (TF32 off on both sides)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    @serve.deployment(ray_actor_options={"num_gpus": 1})
+    class OnCard:
+        def where(self):
+            import os
+
+            props = torch.cuda.get_device_properties(0)
+            return os.environ["CUDA_VISIBLE_DEVICES"], torch.cuda.device_count(), str(props.uuid)
+
+        def __call__(self, a, b):
+            import torch as th  # a local name: cloudpickle cannot pickle torch.backends.cuda
+
+            th.backends.cuda.matmul.allow_tf32 = False
+            return str(a.device), (a.cuda() @ b.cuda()).cpu()
+
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        handle = serve.run(OnCard.bind())
+        visible, count, uuid = handle.where.remote().result(timeout_s=120)
+        assert count == 1
+        assert uuid == str(torch.cuda.get_device_properties(int(visible)).uuid)
+        gen = torch.Generator().manual_seed(13)
+        a, b = torch.randn(512, 512, generator=gen), torch.randn(512, 512, generator=gen)
+        arrived_on, got = handle.remote(a, b).result(timeout_s=120)
+        assert arrived_on == "cpu" and got.device.type == "cpu"
+        torch.testing.assert_close(got, (a.to(dev) @ b.to(dev)).cpu(), rtol=1e-5, atol=1e-4)
+    finally:
+        serve.shutdown()
+        rt.shutdown()

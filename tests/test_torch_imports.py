@@ -1,7 +1,8 @@
-"""The port stands alone: importing ray_tpu_torch (its train and air
-libraries included) and running it pulls in neither JAX nor the ray_tpu
-package, in the driver, in a runtime worker or in a train worker, and its
-entry points refuse to run on the CPU unless asked to."""
+"""The port stands alone: importing ray_tpu_torch (its train, air and
+serve libraries and ``llm``'s Serve deployments included) and running it
+pulls in neither JAX nor the ray_tpu package, in the driver, in a runtime
+worker, in a train worker or in a Serve replica, and its entry points
+refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -69,12 +70,21 @@ def loop():
 storage = tempfile.mkdtemp()
 result = train.DataParallelTrainer(loop, run_config=air.RunConfig(storage_path=storage)).fit()
 shutil.rmtree(storage)
+from ray_tpu_torch import serve
+from ray_tpu_torch.llm import LLMServer, OpenAIServer, build_llm_app, build_openai_app
+@serve.deployment
+def replica_foreign():
+    import sys
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+replica_bad = serve.run(replica_foreign.bind()).remote().result(timeout_s=60)
+serve.shutdown()
 ray_tpu_torch.shutdown()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
 print("FOREIGN", bad)
 print("WORKER FOREIGN", worker_bad)
 print("TRAIN WORKER FOREIGN", result.metrics["foreign"])
+print("SERVE REPLICA FOREIGN", replica_bad)
 """
 
 
@@ -87,6 +97,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
     assert "\nWORKER FOREIGN []" in out.stdout, out.stdout
     assert "TRAIN WORKER FOREIGN []" in out.stdout, out.stdout
+    assert "SERVE REPLICA FOREIGN []" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -183,11 +183,13 @@ def test_copied_module_differs_from_the_reference_by_the_renames_only(name):
         assert f.read() == want
 
 
-# the Train library's modules copied with the renames only, and with
-# ``import ray_tpu`` renamed as well (ROADMAP.md Queue C names the edits of
-# the other Train modules)
+# the Train and Serve libraries' modules copied with the renames only, and
+# with ``import ray_tpu`` renamed as well (ROADMAP.md Queue C names the
+# edits of the other Train and Serve modules)
 VERBATIM_LIBRARY = ["air/result", "train/session", "train/_internal/checkpoint_manager",
-                    "train/data_parallel_trainer"]
+                    "train/data_parallel_trainer", "serve/response", "serve/batching",
+                    "serve/multiplex", "serve/handle", "serve/_private/replica",
+                    "serve/_private/proxy", "serve/_private/local_testing_mode"]
 
 
 @pytest.mark.parametrize("name", VERBATIM_LIBRARY)
