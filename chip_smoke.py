@@ -91,6 +91,24 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    constructed exactly once (the hub's actor table and creation events,
    which also give the constructor's seconds); after ``shutdown()`` no
    worker process may be left;
+6e. cluster phase: ``python -m ray_tpu_torch start --head --num-gpus 0``
+   (``RAY_TPU_TORCH_NUM_GPUS=0`` in its environment only) and ``start
+   --address ... --num-gpus 1 --node-id gpu-node`` in two processes; this
+   process joins as a client (``init(address=...)``): two live nodes,
+   the one GPU on ``gpu-node``, and each of the hub's node-agent message
+   types (and the CLI's SHUTDOWN) with both ends in the source. A
+   ``LlamaActor`` with ``num_gpus=1`` in the group of
+   ``placement_bundles()`` must run on ``gpu-node`` (``util.state``) and
+   see the driver's card by UUID, with the driver's parameter digest; it
+   scores the runtime phase's batch, put by this client as a CPU tensor
+   (loss within ``LOSS_RTOL`` of the in-process ``loss_fn``'s, timed
+   against it); printed: the client's task round trips to each node and
+   a 256 MiB CPU tensor put, echoed by an actor on ``gpu-node`` and got
+   back. A job submitted through the CLI runs a one-GPU task that must
+   land on ``gpu-node`` and see the card; ``status`` and ``summary`` must
+   run; ``stop --address`` from a place with no pid file (SHUTDOWN over
+   the wire) must take the head and the agent down within
+   ``CLUSTER_STOP_S`` with no worker process left;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -123,7 +141,8 @@ process, zeroed there just before the call and read just after it:
 scoring must launch the flash forward once per layer and the CE forward
 once, serving none; so must ``serve_scoring`` and ``serve_llm`` in their
 replicas' processes (zeroed and read through handle calls, and through
-``__ray_call__`` on the OpenAI app's replica). The ``trainer`` path is counted in the gang's
+``__ray_call__`` on the OpenAI app's replica), and ``cluster_scoring`` in
+the ``LlamaActor``'s process on the agent's node. The ``trainer`` path is counted in the gang's
 worker, zeroed there before each step and read after it: each step must
 launch all seven kernels as a training step does. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
@@ -1198,6 +1217,335 @@ def serve_phase(cfg, dev, smi: str, kernel_names, adapter_path: str) -> dict:
     return counted
 
 
+# The cluster phase: seconds a head or node agent may take to start and
+# register, and to exit after `stop`.
+CLUSTER_JOIN_S, CLUSTER_STOP_S = 60.0, 30.0
+
+# The hub's message types whose other end is the node agent, or the
+# CLI's `stop` for SHUTDOWN: constant -> the module holding that end.
+AGENT_MESSAGES = {
+    name: "_private/node_agent.py"
+    for name in ("REGISTER_NODE", "NODE_HEARTBEAT", "WORKER_EXITED", "SPAWN_WORKER",
+                 "KILL_WORKER", "OBJ_READ", "OBJ_READ_REPLY", "OBJ_SPILL", "OBJ_RESTORE",
+                 "OBJ_UNLINK")
+}
+AGENT_MESSAGES["SHUTDOWN"] = "scripts.py"
+
+# A job's entrypoint: a client of the cluster whose one-GPU task reports
+# the node it ran on and the card it sees.
+JOB_SCRIPT = """
+import os
+import ray_tpu_torch as rt
+rt.init(address=os.environ["RAY_TPU_TORCH_ADDRESS"])
+@rt.remote(num_gpus=1)
+def card():
+    import os
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    return os.environ["RAY_TPU_TORCH_NODE_ID"], props.name, str(props.uuid)
+print("JOB CARD", rt.get(card.remote(), timeout=300))
+"""
+
+
+def message_ends(pkg_dir: str) -> dict:
+    """constant -> (its hub end, its other end), each "file:line" or None:
+    a handler ``_on_<type>``, a send of ``P.<NAME>`` or the type's string
+    in ``_private/hub.py``, and ``P.<NAME>`` in the other module."""
+    sys.path.insert(0, os.path.dirname(pkg_dir))
+    from ray_tpu_torch._private import protocol as P
+
+    def first(rel, patterns):
+        with open(os.path.join(pkg_dir, rel)) as f:
+            for i, line in enumerate(f, 1):
+                if any(re.search(p, line) for p in patterns):
+                    return f"{os.path.basename(rel)}:{i}"
+        return None
+
+    out = {}
+    for name, other in AGENT_MESSAGES.items():
+        value = getattr(P, name)
+        out[value] = (first("_private/hub.py", [rf"def _on_{value}\b", rf"\bP\.{name}\b",
+                                                  rf"[\"']{value}[\"']"]),
+                      first(other, [rf"\bP\.{name}\b"]))
+    return out
+
+
+def cluster_phase(cfg, dev, smi: str, kernel_names) -> dict:
+    """The cluster phase: a head with no GPU and a node agent that holds
+    the card, both started through the CLI; this process joins as a
+    client (``init(address=...)``) and scores ``LLAMA_BENCH`` through a
+    ``LlamaActor`` placed on the agent's node; a job submitted through the
+    CLI runs a one-GPU task there; ``stop`` takes the cluster down.
+    Returns the actor's launch counts ({"cluster_scoring": {...}}), read
+    in the actor's process."""
+    import shutil
+    import socket
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import LLMConfig, LlamaActor
+    from ray_tpu_torch.llm._internal.actor import param_digest
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import (NodeAffinitySchedulingStrategy,
+                                    PlacementGroupSchedulingStrategy, metrics, placement_group,
+                                    remove_placement_group, state)
+
+    def tag(line):
+        print(f"cluster [{smi}]: {line}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ends = message_ends(os.path.join(root, "ray_tpu_torch"))
+    tag("message types with both ends: " + ", ".join(
+        f"{t} {a} <-> {b}" for t, (a, b) in ends.items()))
+    fail_unless(all(a and b for a, b in ends.values()),
+                f"cluster: message types missing an end: "
+                f"{[t for t, (a, b) in ends.items() if not (a and b)]}")
+    fail_unless(not rt.is_initialized(), "cluster: the driver already holds a runtime")
+
+    scratch = tempfile.mkdtemp(prefix="ray_tpu_torch_cluster_")
+    homes = {k: os.path.join(scratch, k) for k in ("head", "cli")}
+    for d in homes.values():
+        os.makedirs(d)
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    # the head's HOME keeps its pid file; the CLI's has none, so `stop`
+    # reaches the head over the wire (SHUTDOWN)
+    head_env = dict(os.environ, PYTHONPATH=path, HOME=homes["head"], RAY_TPU_TORCH_NUM_GPUS="0")
+    cli_env = dict(os.environ, PYTHONPATH=path, HOME=homes["cli"])
+    procs = {}
+
+    def launch(name, argv, env):
+        log = open(os.path.join(scratch, f"{name}.log"), "w")
+        procs[name] = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", *argv], env=env,
+                                       cwd=root, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        return procs[name]
+
+    def log_of(name):
+        with open(os.path.join(scratch, f"{name}.log")) as f:
+            return f.read()
+
+    def cli(*argv, timeout=120.0):
+        out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *argv], env=cli_env,
+                             cwd=root, capture_output=True, text=True, timeout=timeout)
+        fail_unless(out.returncode == 0, f"cluster: `{' '.join(argv[:2])}` exited "
+                    f"{out.returncode}: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+        return out.stdout
+
+    counted = {}
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        deadline = t0 + CLUSTER_JOIN_S
+        head = launch("head", ["start", "--head", "--num-gpus", "0", "--num-cpus", "1",
+                               "--port", str(port), "--host", "127.0.0.1"], head_env)
+        while not (m := re.search(r"head started at (tcp://\S+)", log_of("head"))):
+            fail_unless(head.poll() is None and time.perf_counter() < deadline,
+                        f"cluster: the head did not start: {log_of('head')[-2000:]}")
+            time.sleep(0.05)
+        addr = m.group(1)
+        head_s = time.perf_counter() - t0
+        agent = launch("agent", ["start", "--address", addr, "--num-gpus", "1", "--num-cpus",
+                                 "2", "--node-id", "gpu-node"], cli_env)
+        rt.init(address=addr)
+        while True:
+            alive = {n["node_id"]: n for n in rt.nodes() if n["alive"]}
+            if "gpu-node" in alive:
+                break
+            fail_unless(agent.poll() is None and time.perf_counter() < deadline,
+                        f"cluster: the agent did not join: {log_of('agent')[-2000:]}")
+            time.sleep(0.05)
+        joined_s = time.perf_counter() - t0
+        gpus = {nid: n["resources"].get("GPU", 0) for nid, n in alive.items()}
+        total = rt.cluster_resources()
+        tag(f"head at {addr} up after {head_s:.2f} s, gpu-node joined after {joined_s:.2f} s; "
+            f"live nodes {sorted(alive)}, GPUs by node {gpus}, cluster GPU {total.get('GPU', 0)}")
+        fail_unless(sorted(alive) == ["gpu-node", "node0"], f"cluster: live nodes {sorted(alive)}")
+        fail_unless(gpus == {"node0": 0, "gpu-node": 1.0} and total.get("GPU") == 1.0,
+                    f"cluster: GPUs by node {gpus}, in all {total.get('GPU')}")
+
+        # the model on the agent's node, in the placement group of its bundles
+        llm_cfg = LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=1024,
+                            engine_kwargs={"prefill_chunk": 256})
+        bundles, strategy = llm_cfg.placement_bundles()
+        pg = placement_group(bundles, strategy=strategy)
+        fail_unless(pg.wait(60), "cluster: placement group not ready within 60 s")
+        t1 = time.perf_counter()
+        args = (llm_cfg,) if dev.type == "cuda" else (llm_cfg, "cpu")
+        actor = rt.remote(num_gpus=1)(LlamaActor).options(
+            scheduling_strategy=PlacementGroupSchedulingStrategy(pg, 0)).remote(*args)
+        info = rt.get(actor.info.remote(), timeout=300)
+        built_s = time.perf_counter() - t1
+        where = [w["node_id"] for w in state.list_workers() if w.get("pid") == info["pid"]]
+        props = torch.cuda.get_device_properties(dev) if dev.type == "cuda" else None
+        tag(f"LlamaActor pid {info['pid']} on {where} (state.list_workers) in the {strategy} "
+            f"group of {bundles}, built after {built_s:.2f} s: CUDA_VISIBLE_DEVICES="
+            f"{info['cuda_visible_devices']!r}, sees {info['device_count']} card(s), "
+            f"{info.get('name')} {info.get('uuid')}; the driver's card "
+            f"{props.name if props else None} {props.uuid if props else None}")
+        fail_unless(where == ["gpu-node"], f"cluster: the actor runs on {where}")
+        if props is not None:
+            fail_unless(info["device_count"] == 1 and info.get("uuid") == str(props.uuid)
+                        and info.get("name") == props.name,
+                        "cluster: the actor's card is not the driver's")
+        params = llm_cfg.load_params(dev)
+        mine, theirs = param_digest(params), rt.get(actor.param_digest.remote(), timeout=300)
+        tag(f"parameter digest: driver {mine[:16]}, actor {theirs[:16]}")
+        fail_unless(mine == theirs, "cluster: the actor's parameters differ from the driver's")
+
+        # scoring: the runtime phase's batch, put by this client as a CPU tensor
+        fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+        tokens = torch.randint(0, cfg.vocab_size, (8, 2049),
+                               generator=torch.Generator().manual_seed(1))
+        tok_ref = rt.put(tokens)
+        rt.get(actor.reset_launches.remote(), timeout=60)
+        loss_actor = rt.get(actor.score.remote(tok_ref), timeout=300)
+        counted["cluster_scoring"] = rt.get(actor.launches.remote(), timeout=60)
+        with torch.inference_mode():
+            loss_here = llama.loss_fn(params, {"tokens": tokens.to(dev)}, fast).item()
+        want = dict.fromkeys(kernel_names, 0)
+        want.update(flash_attention_fwd=cfg.n_layers, fused_ce_fwd=1)
+        err = abs(loss_actor - loss_here) / abs(loss_here)
+        tag(f"scoring (8x2048 put by the client): actor loss {loss_actor!r}, in-process "
+            f"{loss_here!r}, relative {err:.3e}, bit-equal {loss_actor == loss_here}; launches "
+            f"in the actor {counted['cluster_scoring']}")
+        fail_unless(counted["cluster_scoring"] == want,
+                    f"cluster scoring launched {counted['cluster_scoring']}, want {want}")
+        fail_unless(math.isfinite(loss_actor) and err <= LOSS_RTOL,
+                    f"cluster: scoring loss relative err {err} > {LOSS_RTOL}")
+        actor_ms, here_ms = [], []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            rt.get(actor.score.remote(tok_ref), timeout=300)
+            actor_ms.append((time.perf_counter() - t1) * 1e3)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                llama.loss_fn(params, {"tokens": tokens.to(dev)}, fast).item()
+            here_ms.append((time.perf_counter() - t1) * 1e3)
+        a_ms, h_ms = statistics.median(actor_ms), statistics.median(here_ms)
+        tag(f"scoring time (median of 3): actor on gpu-node {a_ms:.2f} ms, in-process "
+            f"{h_ms:.2f} ms, cluster cost {a_ms - h_ms:.2f} ms")
+        del params
+
+        # the client's round trips, to the head's node and to gpu-node
+        @rt.remote
+        def noop():
+            return None
+
+        def rtt_ms(node, n=100):
+            f = noop.options(scheduling_strategy=NodeAffinitySchedulingStrategy(node_id=node))
+            rt.get([f.remote() for _ in range(4)], timeout=120)  # warm workers
+            out = []
+            for _ in range(n):
+                t1 = time.perf_counter()
+                rt.get(f.remote(), timeout=60)
+                out.append((time.perf_counter() - t1) * 1e3)
+            return statistics.median(out)
+
+        rtt = {node: rtt_ms(node) for node in ("node0", "gpu-node")}
+
+        # 256 MiB CPU tensor: put by the client, through an actor on
+        # gpu-node, and back
+        @rt.remote(num_cpus=0)
+        class Echo:
+            def echo(self, t):
+                return t
+
+        echo = Echo.options(
+            scheduling_strategy=NodeAffinitySchedulingStrategy(node_id="gpu-node")).remote()
+        rt.get(echo.echo.remote(torch.zeros(4)), timeout=120)
+        big = torch.randn(2**20, 128, generator=torch.Generator().manual_seed(2)).to(
+            torch.bfloat16)  # 256 MiB
+        gib = big.numel() * big.element_size() / 2**30
+        legs = []  # (put, the actor's echo ready, get) seconds
+        for i in range(3):
+            t1 = time.perf_counter()
+            ref = rt.put(big)
+            t2 = time.perf_counter()
+            out = echo.echo.remote(ref)
+            rt.wait([out], timeout=300)
+            t3 = time.perf_counter()
+            back = rt.get(out, timeout=300)
+            legs.append((t2 - t1, t3 - t2, time.perf_counter() - t3))
+            if i == 0:
+                fail_unless(torch.equal(back, big), "cluster: the 256 MiB tensor came back changed")
+            del ref, out, back
+        trip = statistics.median(sum(leg) for leg in legs)
+        put_s, echo_s, get_s = (statistics.median(leg[k] for leg in legs) for k in range(3))
+        tag(f"client round trips (medians of 100): task on node0 {rtt['node0']:.3f} ms, on "
+            f"gpu-node {rtt['gpu-node']:.3f} ms; put -> actor on gpu-node -> get of a 256 MiB "
+            f"bf16 CPU tensor {trip * 1e3:.1f} ms (median of 3), {gib / trip:.3f} GiB/s: put "
+            f"{put_s * 1e3:.1f} ms, the echo ready {echo_s * 1e3:.1f} ms, get "
+            f"{get_s * 1e3:.1f} ms (medians)")
+        rt.kill(echo)
+        rt.kill(actor)
+        remove_placement_group(pg)
+
+        # a job through the CLI: its one-GPU task runs on gpu-node
+        t1 = time.perf_counter()
+        job = cli("job", "submit", "--address", addr, "--wait", "--timeout", "300", "--",
+                  sys.executable, "-c", JOB_SCRIPT, timeout=360)
+        job_s = time.perf_counter() - t1
+        m = re.search(r"JOB CARD \('([^']*)', '([^']*)', '([^']*)'\)", job)
+        tag(f"job: submit --wait returned after {job_s:.2f} s, SUCCEEDED "
+            f"{'SUCCEEDED' in job}, its task ran on {m.group(1) if m else None} and saw "
+            f"{m.group(2) if m else None} {m.group(3) if m else None}")
+        fail_unless("SUCCEEDED" in job and m is not None, f"cluster: the job failed: {job[-2000:]}")
+        fail_unless(m.group(1) == "gpu-node", f"cluster: the job's task ran on {m.group(1)}")
+        if props is not None:
+            fail_unless((m.group(2), m.group(3)) == (props.name, str(props.uuid)),
+                        "cluster: the job's card is not the driver's")
+        status = cli("status", "--address", addr)
+        row = next((ln.split() for ln in status.splitlines() if ln.startswith("gpu-node")), None)
+        summary = json.loads(cli("summary", "tasks", "--address", addr))
+        handled = {dict(m["tags"]).get("type"): m["value"] for m in metrics.snapshot()
+                   if m["name"] == "ray_tpu_hub_messages_total"}
+        tag(f"status: gpu-node row {row}; summary: {summary['total']} tasks "
+            f"{summary['by_state']}; the hub handled from the agent: "
+            + ", ".join(f"{t} {int(handled.get(t, 0))}" for t in
+                        ("register_node", "node_heartbeat", "worker_exited", "obj_read_reply")))
+        fail_unless(row is not None and row[1] == "True" and row[-1] == "1.0",
+                    f"cluster: status shows gpu-node as {row}")
+        fail_unless(summary["total"] >= 1, f"cluster: summary {summary}")
+
+        # stop from a place with no pid file: SHUTDOWN over the wire
+        pids = _worker_pids()
+        rt.shutdown()
+        t1 = time.perf_counter()
+        out = cli("stop", "--address", addr)
+        fail_unless(f"sent shutdown to hub at {addr}" in out, f"cluster: stop said {out!r}")
+        deadline = t1 + CLUSTER_STOP_S
+        while ((head.poll() is None or agent.poll() is None or _worker_pids())
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+        gone_s = time.perf_counter() - t1
+        left = _worker_pids()
+        tag(f"stop: head exited {head.poll()}, agent exited {agent.poll()}, {len(pids)} worker "
+            f"processes before, {len(left)} left, after {gone_s:.2f} s (limit "
+            f"{CLUSTER_STOP_S:.0f} s); start-to-joined {joined_s:.2f} s, actor built "
+            f"{built_s:.2f} s, stop-to-gone {gone_s:.2f} s")
+        fail_unless(head.poll() is not None and agent.poll() is not None and not left,
+                    f"cluster: after stop head {head.poll()}, agent {agent.poll()}, workers {left}")
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        # a failed run: the head first (its agent then reaps its workers)
+        for name in ("head", "agent"):
+            p = procs.get(name)
+            if p is not None and p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=15)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+    return counted
+
+
 def main(argv) -> int:
     t_main = time.perf_counter()
     profile = argv == ["--profile"]
@@ -1679,6 +2027,13 @@ def main(argv) -> int:
     # ---------------- serve phase (main paths) ----------------
     # each replica's process has its own CUDA context: room next to this cache
     for path, counts in serve_phase(cfg, dev, smi, list(kernels), adapter_path).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
+
+    # ---------------- cluster phase (main path) ----------------
+    # the actor's process on the agent's node has its own CUDA context
+    for path, counts in cluster_phase(cfg, dev, smi, list(kernels)).items():
         for name in kernels:
             launches[name][path] = counts[name]
     torch.cuda.empty_cache()

@@ -10,7 +10,11 @@ that runtime (``train``: ``TorchTrainer`` gangs with GPU-pinned workers,
 reports, checkpoints and restarts; ``air``: its configs and results), Serve
 on that runtime (``serve``: deployments, handles, ``@serve.batch``,
 multiplexing, streaming, the HTTP and gRPC ingress, replicas pinned to
-GPUs through ``num_gpus``), the
+GPUs through ``num_gpus``), the multi-host runtime (node agents that
+register a host's GPUs with a TCP head, ``init(address="tcp://...")``
+client mode, ``cluster_utils.Cluster``, the ``python -m ray_tpu_torch``
+CLI, ``job_submission``, ``util.state``, ``util.metrics``,
+``util.profiler``, ``util.rpdb``, ``autoscaler`` and ``dashboard``), the
 Llama family (``models.llama``: forward, loss and gradients, remat), MoE Llama
 (``models.moe_llama`` on ``ops.moe``) and ViT (``models.vit``), the
 serving engine (``llm.LlamaEngine``) with LoRA folding, the LLM

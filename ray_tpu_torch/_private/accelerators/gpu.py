@@ -22,6 +22,11 @@ from .accelerator import AcceleratorManager
 ENV_NUM_GPUS = "RAY_TPU_TORCH_NUM_GPUS"
 VISIBLE_ENV = "CUDA_VISIBLE_DEVICES"
 
+# positions, in the CUDA_VISIBLE_DEVICES list this process inherited from
+# its driver or node agent, of the GPUs the runtime pinned to it (set by
+# the worker when it pins; the hub's GPU ids are these positions)
+pinned_positions: List[int] = []
+
 
 def _nvidia_smi_count(timeout: float = 10.0) -> int:
     try:

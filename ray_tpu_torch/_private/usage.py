@@ -106,7 +106,7 @@ def get_usage_report() -> Dict[str, Any]:
     total = worker.cluster_resources()
     return {
         "schema_version": "0.1",
-        "source": "ray_tpu",
+        "source": "ray_tpu_torch",
         "collect_timestamp_ms": int(time.time() * 1000),
         "os": platform.system().lower(),
         "python_version": platform.python_version(),

@@ -8,8 +8,9 @@ to extra control processes, and it makes `init()` ~instant.
 
 Port of ``ray_tpu/_private/worker.py``: GPUs take the place of TPU chips
 as the pinned accelerator (detected by ``accelerators.gpu`` without
-initialising CUDA here), and the runtime is single-node: ``address=``
-(client mode against a TCP hub) is not ported yet.
+initialising CUDA here). ``address="tcp://host:port"`` connects to a
+running cluster in client mode: no hub and no GPU detection here, values
+travel inline through the control connection.
 """
 
 from __future__ import annotations
@@ -67,14 +68,12 @@ def init(
     job_config=None,
     **kwargs,
 ):
-    """Start the runtime (hub thread + on-demand worker pool). Client mode
-    (``address="tcp://host:port"``) is not ported yet and raises."""
+    """Start the runtime (hub thread + on-demand worker pool), or — with
+    ``address="tcp://host:port"`` — connect to an EXISTING cluster as a
+    client (reference: Ray Client, ray.init("ray://...") through
+    util/client/: no local runtime; all values travel inline through the
+    control connection, large results are fetched via the object plane)."""
     global _client, _hub, _session_dir
-    if address:
-        raise NotImplementedError(
-            "init(address=...) (client mode against a TCP hub, multi-host) "
-            "is not ported yet; see ROADMAP.md Queue A item 4"
-        )
     with _lock:
         if _client is not None:
             if ignore_reinit_error or _is_worker:
@@ -85,6 +84,28 @@ def init(
         # The hub thread shares this process's GIL; a shorter switch interval
         # keeps control-plane latency low under CPU-bound driver code.
         sys.setswitchinterval(0.001)
+        if address:
+            import uuid as _uuid
+
+            scratch = os.path.join(
+                tempfile.gettempdir(), f"ray_tpu_torch_client_{_uuid.uuid4().hex[:8]}"
+            )
+            os.makedirs(scratch, exist_ok=True)
+            _session_dir = scratch
+            _client = CoreClient(
+                address, scratch, role="client",
+                worker_id=f"client_{os.getpid()}",
+            )
+            _client.inline_only = True  # no shared /dev/shm with the cluster
+            _register_job_config(_client, job_config)
+            if os.environ.get("RAY_TPU_TORCH_LOG_TO_DRIVER", "1") != "0":
+                _subscribe_worker_logs(_client)
+            from . import usage
+
+            usage.flush_pending()
+            atexit.register(shutdown)
+            return RuntimeContext()
+
         ncpu = num_cpus if num_cpus is not None else (os.cpu_count() or 1)
         res: Dict[str, float] = {"CPU": float(ncpu)}
         # accelerator-manager detection (reference: node resources built

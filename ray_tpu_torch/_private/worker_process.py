@@ -40,6 +40,7 @@ from . import protocol as P
 from .client import CoreClient
 from .serialization import dumps_inline, loads_function, loads_inline
 from ..util import tracing as _t
+from .accelerators import gpu as _gpu
 from .accelerators.gpu import VISIBLE_ENV, visible_ids
 
 # the driver's CUDA_VISIBLE_DEVICES, read before this process narrows it:
@@ -48,6 +49,7 @@ _DRIVER_VISIBLE = os.environ.get(VISIBLE_ENV)
 
 
 def _pin_gpus(ids) -> None:
+    _gpu.pinned_positions[:] = [int(i) for i in ids]
     base = visible_ids(_DRIVER_VISIBLE)
     os.environ[VISIBLE_ENV] = ",".join(
         base[i] if base is not None else str(i) for i in ids

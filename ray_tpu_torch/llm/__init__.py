@@ -22,3 +22,7 @@ __all__ = [
     "load_lora_adapter",
     "save_params_npz",
 ]
+
+from .._private import usage as _usage
+
+_usage.record_library_usage("llm")

@@ -6,8 +6,9 @@ RayTrainWorker actors; backend_executor.py:230 PACK placement group; :363
 rank sorting). GPUs are pinned where the JAX package pins TPU chips: a
 worker that asks for GPUs gets them through ``num_gpus`` and sees them as
 ``CUDA_VISIBLE_DEVICES``. The gang is all-or-nothing; workers are sorted
-by (node, CUDA ids) so that rank 0 is the rendezvous host and ranks
-follow the cards' order.
+by (node, position of their GPUs in the node's ``CUDA_VISIBLE_DEVICES``)
+so that rank 0 is the rendezvous host and ranks follow the cards' order,
+whether the ids are numbers or ``GPU-``/``MIG-`` UUIDs.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ class TrainWorker:
         import os
         import socket
 
+        from ..._private.accelerators import gpu
+
         return {
             "pid": os.getpid(),
             # node agents export the (possibly simulated) host identity;
@@ -51,8 +54,12 @@ class TrainWorker:
             "hostname": os.environ.get("RAY_TPU_TORCH_NODE_HOSTNAME")
             or socket.gethostname(),
             "node_ip": os.environ.get("RAY_TPU_TORCH_NODE_IP", "127.0.0.1"),
-            # the GPU ids the runtime pinned to this process
+            # the GPU ids the runtime pinned to this process, and their
+            # positions in the list the worker inherited (the driver's on
+            # the head, the node agent's elsewhere): ids may be GPU-/MIG-
+            # UUIDs, positions are always ints
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES", ""),
+            "gpu_positions": list(gpu.pinned_positions),
         }
 
     def pick_free_port(self) -> int:
@@ -215,13 +222,11 @@ class WorkerGroup:
             for i in range(sc.num_workers)
         ]
         metas = ray_tpu_torch.get([a.get_metadata.remote() for a in actors])
-        # sort by (hostname, GPU ids) so ranks follow the cards' order
+        # sort by (hostname, GPU positions) so ranks follow the order of
+        # each host's CUDA_VISIBLE_DEVICES, whatever form its ids take
         order = sorted(
             range(len(actors)),
-            key=lambda i: (
-                metas[i]["hostname"],
-                [int(x) for x in metas[i]["cuda_visible_devices"].split(",") if x],
-            ),
+            key=lambda i: (metas[i]["hostname"], metas[i]["gpu_positions"]),
         )
         self.workers = [
             WorkerHandle(actor=actors[j], rank=new_rank, metadata=metas[j])

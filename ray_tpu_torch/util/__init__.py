@@ -1,4 +1,7 @@
-"""Utilities: placement groups, scheduling strategies, actor pools."""
+"""Utilities: placement groups, scheduling strategies, actor pools; the
+state API (``util.state``), metrics, the sampling profiler's reader and
+the remote debugger (``util.metrics``, ``util.profiler``, ``util.rpdb``)
+are submodules, imported where used."""
 
 from .actor_pool import ActorPool
 from .placement_group import (

@@ -676,3 +676,57 @@ def test_gpu_deployment_sees_the_drivers_card_and_computes(dev):
     finally:
         serve.shutdown()
         rt.shutdown()
+
+
+def test_cluster_agent_node_holds_the_card_and_runs_the_kernel(dev):
+    """A Cluster whose head has no GPU (``RAY_TPU_TORCH_NUM_GPUS=0`` while
+    it starts) and one added node whose agent holds the card: a one-GPU
+    actor lands on that node, sees the driver's card by UUID, and runs
+    the flash-attention forward once at a small shape; its output is held
+    against the plain version (ATTN_ATOL, ATTN_ROW_RTOL, STAT_ATOL) and
+    the actor's launch counter reads 1."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    os.environ["RAY_TPU_TORCH_NUM_GPUS"] = "0"
+    try:
+        c = Cluster(head_num_cpus=1)
+    finally:
+        del os.environ["RAY_TPU_TORCH_NUM_GPUS"]
+    try:
+        node = c.add_node(num_cpus=1, num_gpus=1)
+        gpus = {n["node_id"]: n["resources"].get("GPU", 0) for n in rt.nodes() if n["alive"]}
+        assert gpus == {"node0": 0, node.node_id: 1.0}
+
+        @rt.remote(num_gpus=1)
+        class OnCard:
+            def where(self):
+                import os
+
+                props = torch.cuda.get_device_properties(0)
+                return os.environ["RAY_TPU_TORCH_NODE_ID"], str(props.uuid)
+
+            def flash(self, q, k, v):
+                from ray_tpu_torch.ops import cuda_attention as ca
+
+                ca.flash_attention_fwd.launches = 0
+                o, lse = ca.flash_attention_fwd(q.cuda(), k.cuda(), v.cuda(), causal=True)
+                return o.cpu(), lse.cpu(), ca.flash_attention_fwd.launches
+
+        a = OnCard.remote()
+        where, uuid = rt.get(a.where.remote(), timeout=120)
+        assert where == node.node_id
+        assert uuid == str(torch.cuda.get_device_properties(dev).uuid)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (_randn(gen, 1, 256, h, 128).cpu() for h in (4, 2, 2))
+        o, lse, launches = rt.get(a.flash.remote(q, k, v), timeout=120)
+        ro, rlse = cuda_attention.flash_attention_plain(q.float(), k.float(), v.float(),
+                                                        causal=True)
+        assert launches == 1
+        assert (o.float() - ro).abs().max().item() <= ATTN_ATOL
+        assert _row_rel_err(o, ro) <= ATTN_ROW_RTOL
+        assert (lse - rlse).abs().max().item() <= STAT_ATOL
+    finally:
+        c.shutdown()

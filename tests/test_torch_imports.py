@@ -1,8 +1,9 @@
 """The port stands alone: importing ray_tpu_torch (its train, air and
-serve libraries and ``llm``'s Serve deployments included) and running it
-pulls in neither JAX nor the ray_tpu package, in the driver, in a runtime
-worker, in a train worker or in a Serve replica, and its entry points
-refuse to run on the CPU unless asked to."""
+serve libraries, ``llm``'s Serve deployments, and the multi-host modules
+included) and running it pulls in neither JAX nor the ray_tpu package,
+in the driver, in a runtime worker, in a worker a node agent forked, in
+a train worker or in a Serve replica, and its entry points refuse to run
+on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -98,6 +99,42 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     assert "\nWORKER FOREIGN []" in out.stdout, out.stdout
     assert "TRAIN WORKER FOREIGN []" in out.stdout, out.stdout
     assert "SERVE REPLICA FOREIGN []" in out.stdout, out.stdout
+
+
+_CLUSTER_PROBE = """
+import os, sys
+import ray_tpu_torch
+from ray_tpu_torch import autoscaler, cluster_utils, dashboard, job_submission, scripts
+from ray_tpu_torch._private import node_agent
+from ray_tpu_torch.util import metrics, profiler, rpdb, state
+os.environ["RAY_TPU_TORCH_NUM_GPUS"] = "0"
+c = cluster_utils.Cluster(head_num_cpus=1)
+node = c.add_node(num_cpus=1, num_gpus=1)
+@ray_tpu_torch.remote(num_gpus=1)
+def agent_worker_foreign():
+    import os, sys
+    return os.environ["RAY_TPU_TORCH_NODE_ID"], sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+where, agent_bad = ray_tpu_torch.get(agent_worker_foreign.remote(), timeout=60)
+assert where == node.node_id, where
+state.list_nodes(); state.summarize_tasks(); metrics.snapshot()
+c.shutdown()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
+print("FOREIGN", bad)
+print("AGENT WORKER FOREIGN", agent_bad)
+"""
+
+
+def test_cluster_modules_import_neither_jax_nor_ray_tpu():
+    """The node agent, client mode, Cluster, CLI, jobs, state API, metrics,
+    profiler, rpdb, autoscaler and dashboard; a worker forked by a node
+    agent is clean too."""
+    out = subprocess.run([sys.executable, "-c", _CLUSTER_PROBE], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
+    assert "\nAGENT WORKER FOREIGN []" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

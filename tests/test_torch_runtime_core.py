@@ -305,9 +305,14 @@ def test_bind_raises_until_dag_is_ported(runtimes):
     ray_tpu_torch.kill(a)
 
 
-def test_client_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        ray_tpu_torch.init(address="tcp://127.0.0.1:1")
+def test_client_mode_is_not_ported(runtimes):
+    """Named when ``init(address=...)`` raised NotImplementedError. Client
+    mode is ported now (test_torch_runtime_client.py); what stays is the
+    reference's rule that a second ``init``, a client's too, is refused
+    while a runtime is up."""
+    for rt in (ray_tpu, ray_tpu_torch):
+        with pytest.raises(RuntimeError, match="called twice"):
+            rt.init(address="tcp://127.0.0.1:1")
 
 
 @pytest.mark.parametrize("rt", [ray_tpu, ray_tpu_torch], ids=lambda m: m.__name__)

@@ -13,13 +13,24 @@ Also: no module of the port names a ``ray_tpu.`` module or reads a
 ``RAY_TPU_`` variable of the reference's, and the modules copied from
 the reference differ from it by the renames only.
 
+Clusters of both packages on one machine: two CLI heads share one
+``HOME`` and each keeps its address and pid under its own state dir; a
+node agent joins each under the same node id, and each cluster lists
+only its own two nodes; each agent runs its own package's
+``node_agent`` with a session dir of its own prefix; and stopping both
+leaves no process of either.
+
 Cost: one runtime per package for the whole file, two CPUs and two
-pooled workers each; every get has a timeout.
+pooled workers each; every get has a timeout. The cluster test starts
+two heads and two agents as processes of their own.
 """
 
 import ast
+import json
 import os
 import re
+import subprocess
+import sys
 import time
 
 import pytest
@@ -200,3 +211,109 @@ def test_copied_library_module_differs_from_the_reference_by_the_renames_only(na
         want = re.sub(pat, rep, want, flags=re.M)
     with open(os.path.join(PORT_DIR, f"{name}.py")) as f:
         assert f.read() == want
+
+
+# the cluster modules: copied with the renames of every name the runtime
+# writes (state dir, job manager, log files, threads, the HTML title)
+CLUSTER_VERBATIM = ["util/state.py", "util/metrics.py", "util/profiler.py", "util/rpdb.py",
+                    "job_submission.py", "dashboard/__init__.py", "dashboard/index.html",
+                    "__main__.py"]
+
+
+def _cluster_renames(src):
+    src = src.replace("RAY_TPU_", "RAY_TPU_TORCH_")
+    src = re.sub(r"(?<![A-Za-z0-9])_ray_tpu_", "_ray_tpu_torch_", src)
+    src = re.sub(r"\bray_tpu_(?!torch)", "ray_tpu_torch_", src)
+    src = re.sub(r"\bray_tpu\b", "ray_tpu_torch", src)
+    return src.replace("ray-tpu-", "ray-tpu-torch-")
+
+
+@pytest.mark.parametrize("name", CLUSTER_VERBATIM)
+def test_copied_cluster_module_differs_from_the_reference_by_the_renames_only(name):
+    with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
+        want = _cluster_renames(f.read())
+    with open(os.path.join(PORT_DIR, name)) as f:
+        assert f.read() == want
+
+
+def _cli_env(home, pkg):
+    env = dict(os.environ, HOME=str(home), PYTHONPATH=os.path.dirname(PORT_DIR))
+    env["RAY_TPU_NUM_TPUS" if pkg == "ray_tpu" else "RAY_TPU_TORCH_NUM_GPUS"] = "0"
+    return env
+
+
+def _cli_json(home, pkg, *argv):
+    out = subprocess.run([sys.executable, "-m", pkg, *argv], env=_cli_env(home, pkg),
+                         capture_output=True, text=True, timeout=T)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return json.loads(out.stdout)
+
+
+def _proc(pid):
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        cmd = f.read().split(b"\0")
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+    return [c.decode() for c in cmd], {k.decode(): v.decode() for k, v in env.items()}
+
+
+def test_two_clusters_on_one_machine_keep_apart(tmp_path):
+    pkgs = ["ray_tpu", "ray_tpu_torch"]
+    procs = []
+    try:
+        addrs = {}
+        for pkg in pkgs:
+            head = subprocess.Popen([sys.executable, "-m", pkg, "start", "--head", "--num-cpus",
+                                     "1", "--host", "127.0.0.1"], env=_cli_env(tmp_path, pkg),
+                                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            procs.append(head)
+            addr_file = tmp_path / f".{pkg}" / "head_address"
+            pid_file = tmp_path / f".{pkg}" / "head_pid"  # written after the address
+            deadline = time.monotonic() + T
+            while not (pid_file.exists() and pid_file.read_text()):
+                assert head.poll() is None and time.monotonic() < deadline
+                time.sleep(0.1)
+            addrs[pkg] = addr_file.read_text().strip()
+            assert pid_file.read_text() == str(head.pid)
+        assert addrs["ray_tpu"] != addrs["ray_tpu_torch"]
+        agents = {}
+        for pkg in pkgs:
+            agents[pkg] = subprocess.Popen(
+                [sys.executable, "-m", pkg, "start", "--address", addrs[pkg], "--num-cpus", "1",
+                 "--node-id", "agent"], env=_cli_env(tmp_path, pkg),
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            procs.append(agents[pkg])
+        for pkg in pkgs:
+            deadline = time.monotonic() + T
+            while True:
+                nodes = _cli_json(tmp_path, pkg, "list", "nodes", "--format", "json")
+                if len(nodes) == 2 and all(n["alive"] for n in nodes):
+                    break
+                assert time.monotonic() < deadline, nodes
+                time.sleep(0.2)
+            assert sorted(n["node_id"] for n in nodes) == ["agent", "node0"]
+        # each agent is its own package's node agent, in a session dir of
+        # its own prefix, and the port's carries none of the reference's
+        # variables
+        (rcmd, renv), (pcmd, penv) = (_proc(agents[pkg].pid) for pkg in pkgs)
+        assert "ray_tpu._private.node_agent" in rcmd
+        assert "ray_tpu_torch._private.node_agent" in pcmd
+        assert os.path.basename(renv["RAY_TPU_SESSION_DIR"]).startswith("ray_tpu_agent")
+        assert os.path.basename(penv["RAY_TPU_TORCH_SESSION_DIR"]).startswith(
+            "ray_tpu_torch_agent")
+        assert penv["RAY_TPU_TORCH_HUB_ADDR"] == addrs["ray_tpu_torch"]
+        assert not [k for k in renv if k.startswith("RAY_TPU_TORCH_")]
+        foreign = {k: v for k, v in penv.items()
+                   if k.startswith("RAY_TPU_") and not k.startswith("RAY_TPU_TORCH_")}
+        assert all(os.environ.get(k) == v for k, v in foreign.items()), foreign
+        for pkg in pkgs:
+            out = subprocess.run([sys.executable, "-m", pkg, "stop"], env=_cli_env(tmp_path, pkg),
+                                 capture_output=True, text=True, timeout=T)
+            assert out.returncode == 0, out.stderr
+        for p in procs:
+            p.wait(timeout=T)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
