@@ -109,6 +109,39 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    run; ``stop --address`` from a place with no pid file (SHUTDOWN over
    the wire) must take the head and the agent down within
    ``CLUSTER_STOP_S`` with no worker process left;
+6f. dag phase, in its own ``init(num_cpus=2)``: a ``num_gpus=1``
+   ``LlamaActor`` (``LLAMA_BENCH``, bf16, seeded 0, the driver's card)
+   scores the runtime phase's batch through compiled DAGs: in legacy mode
+   (``actor.score.bind``, 6 executes, the batch by value and by a ref, each
+   loss bit-equal to the driver's)
+   and in channel mode (a method that takes the int32 batch as numpy and
+   returns the 8 per-row losses as f32, both annotated with
+   ``with_shm_channel``; 16 executes, 10 of them pipelined up to the
+   ring's capacity of 4, each bit-equal to the driver's rows; the C++ ring
+   backend; no task event across the 10). The counters are zeroed in the
+   actor before each compile and read after each teardown, since the
+   resident loop holds the actor. Printed: each mode's ms per execute
+   beside ``actor.score.remote`` and the in-process call; after teardown
+   the actor answers again and holds the one GPU;
+6g. workflow phase: a two-node workflow (a CPU task makes the batch, a
+   ``num_gpus=1`` task builds ``LLAMA_BENCH`` and scores it); the first
+   run fails by a planned fault in the scoring node (status FAILED), the
+   resume replays that node only (status SUCCEEDED) and its loss is
+   bit-equal to the driver's;
+6h. data phase: 64 seeded 2049-token rows in 8 blocks (``from_numpy``);
+   ``map_batches`` of a scoring class with ``batch_size=8, concurrency=1,
+   num_gpus=1`` (one pool actor on the driver's card with
+   ``CUDA_VISIBLE_DEVICES='0'``; its per-row losses bit-equal to the
+   driver's; each batch's launches returned as columns); the rows staged
+   onto the card by ``iter_torch_batches(batch_size=8,
+   device_put="cuda")`` with ``prefetch_batches`` 2 and 0, each batch equal
+   to its rows and its loss in this process bit-equal to scoring the rows
+   moved directly; ``build_llm_processor`` on ``LLAMA_BENCH``
+   (``concurrency=1, batch_size=8, max_tokens=32``, greedy) over the 8
+   prompts, whose tokens must equal an in-process engine's, with no
+   kernel launched in its pool actor (read through ``__ray_call__`` while
+   the stage's output is still open). Printed: rows/s, ms per batch with
+   each prefetch, one batch's host-to-card copy, tokens/s;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -142,7 +175,12 @@ scoring must launch the flash forward once per layer and the CE forward
 once, serving none; so must ``serve_scoring`` and ``serve_llm`` in their
 replicas' processes (zeroed and read through handle calls, and through
 ``__ray_call__`` on the OpenAI app's replica), and ``cluster_scoring`` in
-the ``LlamaActor``'s process on the agent's node. The ``trainer`` path is counted in the gang's
+the ``LlamaActor``'s process on the agent's node; ``dag_legacy`` (6 batches) and
+``dag_channel`` (16) in the DAG's actor, ``workflow_scoring`` (1) in the
+workflow's scoring task, ``data_pool`` (8) in the pool actor, summed from
+its per-batch columns, and ``data_staging`` (8) in this process must
+launch the flash forward once per layer and the CE forward once per
+batch, and ``llm_processor`` none. The ``trainer`` path is counted in the gang's
 worker, zeroed there before each step and read after it: each step must
 launch all seven kernels as a training step does. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
@@ -416,6 +454,15 @@ def _worker_pids() -> list:
     return pids
 
 
+def bench_inputs(cfg):
+    """The runtime phase's inputs: the 8 x 2049 token batch (CPU, from a
+    generator seeded 1) and the 8 prompts (numpy seeded 7)."""
+    tokens = torch.randint(0, cfg.vocab_size, (8, 2049), generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 601, 8)]
+    return tokens, prompts
+
+
 def runtime_phase(cfg, dev, smi: str, kernel_names) -> dict:
     """The runtime phase: ``LLAMA_BENCH`` scored and served by a
     ``LlamaActor`` that the port's runtime pins to the card, inside the
@@ -466,7 +513,7 @@ def runtime_phase(cfg, dev, smi: str, kernel_names) -> dict:
 
     # scoring: the batch goes through the object store as a CPU tensor
     fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
-    tokens = torch.randint(0, cfg.vocab_size, (8, 2049), generator=torch.Generator().manual_seed(1))
+    tokens, prompts = bench_inputs(cfg)
     tok_ref = rt.put(tokens)
     rt.get(actor.reset_launches.remote(), timeout=60)
     loss_actor = rt.get(actor.score.remote(tok_ref), timeout=300)
@@ -501,8 +548,6 @@ def runtime_phase(cfg, dev, smi: str, kernel_names) -> dict:
            else f"built the kernel library itself in {nvcc_s:.2f} s"))
 
     # serving: 8 greedy requests in the actor and in an in-process engine
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 601, 8)]
 
     def requests():
         return [GenRequest(request_id=str(i), prompt_ids=p, max_tokens=32)
@@ -743,7 +788,7 @@ def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
     def tag(line):
         print(f"trainer [{smi}]: {line}")
 
-    tokens = torch.randint(0, cfg.vocab_size, (8, 2049), generator=torch.Generator().manual_seed(1))
+    tokens, _ = bench_inputs(cfg)
     state, step = trainer_setup(cfg, dev)
     batch = {"tokens": tokens.to(dev)}
     here, here_ms = [], []
@@ -883,24 +928,35 @@ def row_losses(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return nll.reshape(B, S).mean(dim=1)
 
 
-def process_probe(server, reset: bool = False) -> dict:
-    """Runs in a Serve replica's process, on its user object: the
-    process, the card it sees, where the object's engine runs, and the
-    kernels' launch counters (zeroed after reading if ``reset``)."""
+def launch_probe(_instance=None, reset: bool = False) -> dict:
+    """The kernels' launch counters in the calling process (zeroed after
+    reading if ``reset``); runs in an actor through ``__ray_call__``."""
     from ray_tpu_torch.llm._internal.actor import _kernels
 
     counts = {name: w.launches for name, w in _kernels().items()}
     if reset:
         for w in _kernels().values():
             w.launches = 0
+    return counts
+
+
+def card_of() -> dict:
+    """This process's pid and CUDA_VISIBLE_DEVICES, how many cards it
+    sees, and the first one's name and UUID (None without a card)."""
     props = torch.cuda.get_device_properties(0) if torch.cuda.is_available() else None
-    engine = getattr(server, "engine", None)
     return {"pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "count": torch.cuda.device_count() if props is not None else 0,
             "name": props.name if props is not None else None,
-            "uuid": str(props.uuid) if props is not None else None,
-            "engine_device": str(engine.device) if engine is not None else None,
-            "launches": counts}
+            "uuid": str(props.uuid) if props is not None else None}
+
+
+def process_probe(server, reset: bool = False) -> dict:
+    """Runs in a Serve replica's process, on its user object: the
+    process, the card it sees, where the object's engine runs, and the
+    kernels' launch counters (zeroed after reading if ``reset``)."""
+    engine = getattr(server, "engine", None)
+    return {**card_of(), "engine_device": str(engine.device) if engine is not None else None,
+            "launches": launch_probe(reset=reset)}
 
 
 def replica_probe(replica, reset: bool = False) -> dict:
@@ -1014,8 +1070,7 @@ def serve_phase(cfg, dev, smi: str, kernel_names, adapter_path: str) -> dict:
         fail_unless(mine == theirs, "serve_scoring: the replica's parameters differ")
 
         fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
-        tokens = torch.randint(0, cfg.vocab_size, (8, 2049),
-                               generator=torch.Generator().manual_seed(1))
+        tokens, prompts = bench_inputs(cfg)
 
         def score_batch():
             resps = [handle.remote(tokens[i]) for i in range(8)]
@@ -1106,9 +1161,6 @@ def serve_phase(cfg, dev, smi: str, kernel_names, adapter_path: str) -> dict:
         fail_unless(where["count"] == 1 and props is not None and where["uuid"] == str(props.uuid),
                     "serve_llm: the replica's card is not the driver's")
 
-        rng = np.random.default_rng(7)  # the runtime phase's prompts
-        prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-                   for n in rng.integers(64, 601, 8)]
 
         def complete_all():
             """8 concurrent completions, one thread each: (seconds for all,
@@ -1396,8 +1448,7 @@ def cluster_phase(cfg, dev, smi: str, kernel_names) -> dict:
 
         # scoring: the runtime phase's batch, put by this client as a CPU tensor
         fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
-        tokens = torch.randint(0, cfg.vocab_size, (8, 2049),
-                               generator=torch.Generator().manual_seed(1))
+        tokens, _ = bench_inputs(cfg)
         tok_ref = rt.put(tokens)
         rt.get(actor.reset_launches.remote(), timeout=60)
         loss_actor = rt.get(actor.score.remote(tok_ref), timeout=300)
@@ -1543,6 +1594,423 @@ def cluster_phase(cfg, dev, smi: str, kernel_names) -> dict:
                     p.kill()
                     p.wait()
         shutil.rmtree(scratch, ignore_errors=True)
+    return counted
+
+
+def _same_card(where: dict, dev, what: str) -> None:
+    """A process placed with num_gpus=1 sees one card, the driver's."""
+    fail_unless(where["visible"] == "0", f"{what}: CUDA_VISIBLE_DEVICES={where['visible']!r}")
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        fail_unless(where["count"] == 1 and where["uuid"] == str(props.uuid),
+                    f"{what}: sees {where['count']} card(s), {where['uuid']}, not the "
+                    f"driver's {props.uuid}")
+
+
+def _scoring_counts(kernel_names, n_layers: int, n: int) -> dict:
+    want = dict.fromkeys(kernel_names, 0)
+    want.update(flash_attention_fwd=n_layers * n, fused_ce_fwd=n)
+    return want
+
+
+def dag_phase(cfg, dev, smi: str, kernel_names, params) -> dict:
+    """The DAG phase: ``LLAMA_BENCH`` in a ``num_gpus=1`` ``LlamaActor``
+    scored through compiled DAGs, in legacy mode (``actor.score.bind``)
+    and in channel mode (a resident loop on the actor, C++ rings for the
+    int32 batch and the per-row losses). ``params`` are the driver's
+    weights. Returns the actor's launch counts per path."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.llm import LLMConfig, LlamaActor
+    from ray_tpu_torch.models import llama
+
+    def tag(line):
+        print(f"dag [{smi}]: {line}")
+
+    class RowScorer(LlamaActor):
+        """``LlamaActor`` with each row's mean loss of an int32 numpy batch,
+        returned as f32 numpy: the payloads a channel carries."""
+
+        def row_losses(self, tokens):
+            fast = dataclasses.replace(self.config, attention_impl="flash", ce_impl="fused")
+            with torch.inference_mode():
+                t = torch.from_numpy(tokens).to(self.device)
+                return row_losses(self.params, t, fast).float().cpu().numpy()
+
+    fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+    tokens, _ = bench_inputs(cfg)
+    tok32 = tokens.to(torch.int32).numpy()
+    on_dev = tokens.to(dev)
+    with torch.inference_mode():
+        loss_here = llama.loss_fn(params, {"tokens": on_dev}, fast).item()
+        rows_here = row_losses(params, on_dev, fast).float().cpu().numpy()
+    rt.init(num_cpus=2)
+    try:
+        llm_cfg = LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=1024)
+        actor = rt.remote(num_gpus=1)(RowScorer).remote(llm_cfg, device=str(dev))
+        where = rt.get(actor.__ray_call__.remote(lambda _instance: card_of()), timeout=300)
+        _same_card(where, dev, "dag")
+        counted = {}
+
+        # legacy mode: each execute submits the actor task
+        with InputNode() as inp:
+            legacy = actor.score.bind(inp).experimental_compile()
+        fail_unless(not legacy._channel_mode, "dag: an unannotated graph compiled to channels")
+        tok_ref = rt.put(tokens)
+        rt.get(actor.__ray_call__.remote(launch_probe, True), timeout=60)
+        legacy_ms, legacy_loss = {"value": [], "ref": []}, []
+        for arg in (tokens, tokens, tokens, tok_ref, tok_ref, tok_ref):
+            t0 = time.perf_counter()
+            legacy_loss.append(legacy.execute(arg).get(timeout=300))
+            legacy_ms["ref" if arg is tok_ref else "value"].append((time.perf_counter() - t0) * 1e3)
+        legacy.teardown()
+        counted["dag_legacy"] = rt.get(actor.__ray_call__.remote(launch_probe), timeout=60)
+        tag(f"legacy mode (actor.score.bind, 6 executes: the batch by value, then by a ref put "
+            f"once): losses {legacy_loss}, in-process {loss_here!r}, bit-equal "
+            f"{all(v == loss_here for v in legacy_loss)}; launches in the actor "
+            f"{counted['dag_legacy']}")
+        fail_unless(all(v == loss_here for v in legacy_loss),
+                    f"dag: legacy losses {legacy_loss} differ from the driver's {loss_here!r}")
+        fail_unless(counted["dag_legacy"] == _scoring_counts(kernel_names, cfg.n_layers, 6),
+                    f"dag legacy launched {counted['dag_legacy']}")
+
+        # channel mode: the resident loop holds the actor until teardown, so
+        # the counters are zeroed before compiling and read after teardown
+        rt.get(actor.__ray_call__.remote(launch_probe, True), timeout=60)
+        cap = 4
+        with InputNode() as inp:
+            inp.with_shm_channel(tok32.shape, "int32")
+            node = actor.row_losses.bind(inp).with_shm_channel((8,), "float32")
+        t0 = time.perf_counter()
+        chan = node.experimental_compile(max_inflight_executions=cap)
+        fail_unless(chan._channel_mode, "dag: the annotated graph did not compile to channels")
+        backends = sorted({ch.backend for ch in chan._edge_chans.values()})
+        first = chan.execute(tok32).get(timeout=300)
+        first_s = time.perf_counter() - t0
+        client = rt._private.worker.get_client()
+        events = len(client.list_state("tasks"))
+        t0 = time.perf_counter()
+        refs = [chan.execute(tok32) for _ in range(10)]  # pipelined up to the ring's capacity
+        outs = [r.get(timeout=300) for r in refs]
+        pipe_ms = (time.perf_counter() - t0) * 1e3 / 10
+        events_after = len(client.list_state("tasks"))
+        seq_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            outs.append(chan.execute(tok32).get(timeout=300))
+            seq_ms.append((time.perf_counter() - t0) * 1e3)
+        chan.teardown()
+        n_chan = 1 + len(outs)
+        counted["dag_channel"] = rt.get(actor.__ray_call__.remote(launch_probe), timeout=60)
+        same = [np.array_equal(o, rows_here) for o in [first] + outs]
+        tag(f"channel mode: backend {backends}, ring capacity {cap}; {n_chan} executes of the "
+            f"int32 8x2049 batch -> 8 f32 row losses {first.tolist()}; in-process "
+            f"{rows_here.tolist()}; {sum(same)} of {n_chan} bit-equal; task events "
+            f"{events} before the 10 pipelined executes, {events_after} after; launches in the "
+            f"actor {counted['dag_channel']}")
+        fail_unless(backends == ["native"], f"dag: channel backends {backends}")
+        fail_unless(all(same), "dag: channel-mode row losses differ from the driver's")
+        fail_unless(events_after == events,
+                    f"dag: {events_after - events} task events across the channel executes")
+        fail_unless(counted["dag_channel"] == _scoring_counts(kernel_names, cfg.n_layers, n_chan),
+                    f"dag channel launched {counted['dag_channel']}")
+
+        # the same call submitted as an actor task, and in this process
+        remote_ms, ref_ms, here_ms = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rt.get(actor.score.remote(tokens), timeout=300)
+            remote_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            rt.get(actor.score.remote(tok_ref), timeout=300)
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                llama.loss_fn(params, {"tokens": tokens.to(dev)}, fast).item()
+            here_ms.append((time.perf_counter() - t0) * 1e3)
+        gpu_free = rt.available_resources().get("GPU", 0)
+        alive = [a for a in client.list_state("actors") if a["state"] == "ALIVE"]
+        tag(f"execute ms (median): legacy {statistics.median(legacy_ms['value']):.2f} by value, "
+            f"{statistics.median(legacy_ms['ref']):.2f} by ref (of 3 each), channel "
+            f"{statistics.median(seq_ms):.2f} one at a time (of 5) and {pipe_ms:.2f} per execute "
+            f"pipelined (10); actor.score.remote {statistics.median(remote_ms):.2f} by value, "
+            f"{statistics.median(ref_ms):.2f} by ref, in-process {statistics.median(here_ms):.2f} "
+            f"(medians of 3); compile to first result "
+            f"{first_s:.2f} s; after teardown the actor answered, {len(alive)} actor(s) alive, "
+            f"GPU free {gpu_free}")
+        fail_unless(len(alive) == 1 and gpu_free == 0,
+                    f"dag: {len(alive)} actors alive, GPU free {gpu_free} after teardown")
+        rt.kill(actor)
+    finally:
+        rt.shutdown()
+    return counted
+
+
+def workflow_phase(cfg, dev, smi: str, kernel_names, params, storage: str) -> dict:
+    """The workflow phase: a two-node durable workflow whose second node, a
+    ``num_gpus=1`` task, scores the batch; its first attempt fails on
+    purpose, and the resume replays that node only. Returns its launch
+    counts, read in the task's process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import llama
+
+    def tag(line):
+        print(f"workflow [{smi}]: {line}")
+
+    fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+    tokens, _ = bench_inputs(cfg)
+    with torch.inference_mode():
+        loss_here = llama.loss_fn(params, {"tokens": tokens.to(dev)}, fast).item()
+    runs = os.path.join(storage, "runs")
+    os.makedirs(runs)
+    device = str(dev)
+
+    @rt.remote
+    def make_batch(seed):
+        open(os.path.join(runs, "make_batch"), "a").write("x")
+        return torch.randint(0, cfg.vocab_size, (8, 2049),
+                             generator=torch.Generator().manual_seed(seed))
+
+    @rt.remote(num_gpus=1)
+    def score(batch):
+        from ray_tpu_torch.llm import LLMConfig
+
+        open(os.path.join(runs, "score"), "a").write("x")
+        if not os.path.exists(os.path.join(runs, "fault_done")):
+            open(os.path.join(runs, "fault_done"), "w").close()
+            raise RuntimeError("planned fault in the scoring node")
+        p = LLMConfig(model_config=cfg).load_params(device)
+        launch_probe(reset=True)
+        with torch.inference_mode():
+            loss = llama.loss_fn(p, {"tokens": batch.to(device)}, fast).item()
+        return loss, launch_probe(), card_of()
+
+    workflow.init(os.path.join(storage, "wf"))
+    with InputNode() as inp:
+        wf = score.bind(make_batch.bind(inp))
+    rt.init(num_cpus=2)
+    try:
+        t0 = time.perf_counter()
+        try:
+            workflow.run(wf, workflow_id="score", args=1)
+            raised = None
+        except Exception as e:  # the planned fault
+            raised = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        status = workflow.get_status("score")
+        fail_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss, counts, where = workflow.resume("score", wf, args=1)
+        resume_s = time.perf_counter() - t0
+        final = workflow.get_status("score")
+        calls = {n: len(open(os.path.join(runs, n)).read()) for n in ("make_batch", "score")}
+        tag(f"first run raised {raised!r}; status {status}; resume {final} in {resume_s:.2f} s "
+            f"(first run {fail_s:.2f} s): runs per node {calls}; loss {loss!r}, in-process "
+            f"{loss_here!r}, bit-equal {loss == loss_here}; the node's process {where}; launches "
+            f"there {counts}; list_all {workflow.list_all()}")
+        fail_unless(raised is not None and status == "FAILED",
+                    f"workflow: the faulty run raised {raised!r}, status {status}")
+        fail_unless(final == "SUCCEEDED" and calls == {"make_batch": 1, "score": 2},
+                    f"workflow: status {final}, runs per node {calls}")
+        fail_unless(loss == loss_here, f"workflow: loss {loss!r} is not the driver's {loss_here!r}")
+        _same_card(where, dev, "workflow")
+        fail_unless(counts == _scoring_counts(kernel_names, cfg.n_layers, 1),
+                    f"workflow scoring launched {counts}")
+    finally:
+        rt.shutdown()
+    return {"workflow_scoring": counts}
+
+
+def data_phase(cfg, dev, smi: str, kernel_names, params) -> dict:
+    """The Data phase: 64 seeded 2049-token rows staged onto the card by
+    ``iter_torch_batches`` and scored in this process; the same rows
+    scored by a ``num_gpus=1`` actor-pool UDF of ``map_batches``; the 8
+    prompts through ``build_llm_processor``. Returns the launch counts per
+    path: ``data_staging`` in this process, ``data_pool`` and
+    ``llm_processor`` in the pool actors."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.actor import _rebuild_handle
+    from ray_tpu_torch.llm import LLMConfig, LlamaEngine, GenRequest, build_llm_processor
+    from ray_tpu_torch.models import llama
+
+    def tag(line):
+        print(f"data [{smi}]: {line}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+    rows = np.random.default_rng(11).integers(0, cfg.vocab_size, (64, 2049), dtype=np.int32)
+    with torch.inference_mode():
+        rows_here = np.concatenate([
+            row_losses(params, torch.from_numpy(rows[i:i + 8]).to(dev), fast).float().cpu().numpy()
+            for i in range(0, 64, 8)])
+    _, prompts = bench_inputs(cfg)
+    engine_kwargs = {"prefill_chunk": 256}
+    if dev.type != "cuda":
+        engine_kwargs["device"] = str(dev)
+    device = str(dev)
+
+    class BatchScorer:
+        """Map-batches UDF: each row's mean loss of an int32 batch, with this
+        process's card and the batch's kernel launches as columns."""
+
+        def __init__(self):
+            from ray_tpu_torch.llm import LLMConfig as _Cfg
+
+            self.params = _Cfg(model_config=cfg).load_params(device)
+
+        def __call__(self, batch):
+            launch_probe(reset=True)
+            with torch.inference_mode():
+                tokens = torch.from_numpy(np.array(batch["data"]))  # a writable copy
+                losses = row_losses(self.params, tokens.to(device), fast)
+            losses = losses.float().cpu().numpy()
+            counts, where = launch_probe(), card_of()
+            n = len(losses)
+            return {"loss": losses, "k1": np.full(n, counts["flash_attention_fwd"]),
+                    "k4": np.full(n, counts["fused_ce_fwd"]),
+                    "others": np.full(n, sum(counts.values()) - counts["flash_attention_fwd"]
+                                      - counts["fused_ce_fwd"]),
+                    "visible": np.array([where["visible"]] * n),
+                    "uuid": np.array([where["uuid"] or ""] * n)}
+
+    rt.init(num_cpus=2)
+    counted = {}
+    try:
+        ds = data.from_numpy(np.split(rows, 8)).materialize()
+        fail_unless(ds.num_blocks() == 8 and ds.count() == 64, "data: not 64 rows in 8 blocks")
+
+        # the pool first: the card goes to a worker that has run no user code
+        t0 = time.perf_counter()
+        scored = ds.map_batches(BatchScorer, batch_size=8, concurrency=1, num_gpus=1).take_all()
+        pool_s = time.perf_counter() - t0
+        got = np.array([r["loss"] for r in scored], np.float32)
+        k1 = sorted({int(r["k1"]) for r in scored})
+        k4 = sorted({int(r["k4"]) for r in scored})
+        others = sorted({int(r["others"]) for r in scored})
+        visible = sorted({str(r["visible"]) for r in scored})
+        uuids = sorted({str(r["uuid"]) for r in scored})
+        counted["data_pool"] = dict.fromkeys(kernel_names, 0)
+        counted["data_pool"].update(flash_attention_fwd=sum(int(r["k1"]) for r in scored[::8]),
+                                    fused_ce_fwd=sum(int(r["k4"]) for r in scored[::8]))
+        tag(f"map_batches(BatchScorer, batch_size=8, concurrency=1, num_gpus=1): {len(scored)} "
+            f"rows in {pool_s:.2f} s ({len(scored) / pool_s:.1f} rows/s, the actor's start and "
+            f"model build included); per batch K1 {k1}, K4 {k4}, others {others}; "
+            f"CUDA_VISIBLE_DEVICES {visible}, card {uuids}; "
+            f"{int((got == rows_here).sum())} of 64 row losses bit-equal to the driver's")
+        fail_unless(len(scored) == 64 and np.array_equal(got, rows_here),
+                    "data: the pool's row losses differ from the driver's")
+        fail_unless(k1 == [cfg.n_layers] and k4 == [1] and others == [0],
+                    f"data: a pool batch launched K1 {k1}, K4 {k4}, others {others}")
+        fail_unless(visible == ["0"], f"data: the pool actor saw CUDA_VISIBLE_DEVICES {visible}")
+        if dev.type == "cuda":
+            fail_unless(uuids == [str(torch.cuda.get_device_properties(dev).uuid)],
+                        f"data: the pool actor's card {uuids} is not the driver's")
+
+        # staging: each batch a tensor on the card, scored in this process
+        with torch.inference_mode():
+            direct = [llama.loss_fn(params, {"tokens": torch.from_numpy(rows[i:i + 8]).to(dev)},
+                                    fast).item() for i in range(0, 64, 8)]
+        def staged_pass(prefetch):
+            """(ms per batch, [(staged tensor, its loss)]) of one pass."""
+            out = []
+            sync()
+            t0 = time.perf_counter()
+            for b in ds.iter_torch_batches(batch_size=8, device_put=device,
+                                           prefetch_batches=prefetch):
+                with torch.inference_mode():
+                    out.append((b["data"], llama.loss_fn(params, {"tokens": b["data"]},
+                                                         fast).item()))
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / max(len(out), 1), out
+
+        launch_probe(reset=True)
+        _, first = staged_pass(2)  # the counted run; it also warms the stream and pinned pool
+        counted["data_staging"] = launch_probe()
+        equal = sum(t.device.type == dev.type
+                    and torch.equal(t.cpu(), torch.from_numpy(rows[8 * i:8 * i + 8]))
+                    for i, (t, _) in enumerate(first))
+        bit_equal = sum(loss == direct[i] for i, (_, loss) in enumerate(first))
+        fail_unless(len(first) == 8 and equal == 8 and bit_equal == 8,
+                    f"data staging: {len(first)} batches, {equal} equal on {dev.type}, "
+                    f"{bit_equal} losses bit-equal")
+        del first
+        times = {2: [], 0: []}
+        for prefetch in (2, 0, 2, 0):  # in turns
+            times[prefetch].append(staged_pass(prefetch)[0])
+        per_batch = {k: statistics.median(v) for k, v in times.items()}
+        # the host-to-card copy alone: one batch from pinned memory
+        if dev.type == "cuda":
+            pinned = torch.from_numpy(rows[:8]).pin_memory()
+            copy_ms = time_ms(lambda: pinned.to(dev, non_blocking=True), 20)
+            copy_bytes = pinned.numel() * pinned.element_size()
+            rate = f"{copy_bytes / 2**30 / (copy_ms / 1e3):.3f} GiB/s ({copy_bytes} bytes in " \
+                   f"{copy_ms:.4f} ms)"
+        else:
+            rate = "not measured (no card)"
+        t0 = time.perf_counter()
+        n_only = sum(1 for _ in ds.iter_batches(batch_size=8, device_put=device,
+                                                prefetch_batches=2))
+        sync()
+        only_ms = (time.perf_counter() - t0) * 1e3 / n_only
+        tag(f"iter_torch_batches(batch_size=8, device_put={device!r}): 8 of 8 batches on the "
+            f"card equal to their rows, 8 of 8 losses bit-equal to scoring the rows moved "
+            f"directly; ms per batch with scoring (median of 2 passes in turns after a counted "
+            f"one): prefetch 2 {per_batch[2]:.2f}, prefetch 0 {per_batch[0]:.2f}; staging "
+            f"alone {only_ms:.3f} ms per batch; copy of one batch {rate}; launches in this "
+            f"process (the counted pass) {counted['data_staging']}")
+        fail_unless(counted["data_staging"] == _scoring_counts(kernel_names, cfg.n_layers, 8),
+                    f"data staging launched {counted['data_staging']}")
+
+        # batch inference: build_llm_processor over the 8 prompts
+        llm_cfg = LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=1024,
+                            engine_kwargs=engine_kwargs)
+        eng = LlamaEngine(cfg, params, max_batch=8, max_seq=1024, device=dev, prefill_chunk=256)
+        local = [GenRequest(request_id=str(i), prompt_ids=p, max_tokens=32)
+                 for i, p in enumerate(prompts)]
+        pending = list(local)
+        t0 = time.perf_counter()
+        while pending or eng.num_active():
+            while pending and eng.has_capacity():
+                eng.add_request(pending.pop(0))
+            if eng.num_active():
+                eng.step()
+        local_s = time.perf_counter() - t0
+        del eng
+        processor = build_llm_processor(llm_cfg, concurrency=1, batch_size=8, max_tokens=32)
+        pds = data.from_items([{"prompt_ids": np.array(p)} for p in prompts])
+        t0 = time.perf_counter()
+        it = processor(pds).iter_batches(batch_size=None, prefetch_batches=0)
+        batches = [next(it)]
+        client = rt._private.worker.get_client()
+        pool = [a for a in client.list_state("actors")
+                if a["state"] == "ALIVE" and a["resources"].get("GPU")]
+        fail_unless(len(pool) == 1, f"data: {len(pool)} GPU actors alive during the processor")
+        counted["llm_processor"] = rt.get(_rebuild_handle(bytes.fromhex(pool[0]["actor_id"]))
+                                          .__ray_call__.remote(launch_probe), timeout=60)
+        batches += list(it)
+        proc_s = time.perf_counter() - t0
+        gen = [list(map(int, g[:n])) for b in batches
+               for g, n in zip(b["generated_ids"], b["num_generated"])]
+        same = sum(g == r.generated for g, r in zip(gen, local))
+        n_tok = sum(len(g) for g in gen)
+        tag(f"build_llm_processor(LLAMA_BENCH, concurrency=1, batch_size=8, max_tokens=32, "
+            f"greedy): {len(gen)} rows, {same} of 8 token lists equal to the in-process "
+            f"engine's; {n_tok} tokens in {proc_s:.2f} s ({n_tok / proc_s:.1f} tokens/s, the "
+            f"pool actor's start and model build included), in-process {local_s:.2f} s "
+            f"({n_tok / local_s:.1f} tokens/s); launches in the pool actor "
+            f"{counted['llm_processor']}")
+        fail_unless(len(gen) == 8 and same == 8, f"data: {8 - same} processor token lists differ")
+        fail_unless(counted["llm_processor"] == dict.fromkeys(kernel_names, 0),
+                    f"data: the processor launched {counted['llm_processor']}")
+    finally:
+        rt.shutdown()
     return counted
 
 
@@ -2036,6 +2504,24 @@ def main(argv) -> int:
     for path, counts in cluster_phase(cfg, dev, smi, list(kernels)).items():
         for name in kernels:
             launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
+
+    # ---------------- dag, workflow and data phases (main paths) ----------------
+    # each in its own runtime, held against this process's LLAMA_BENCH (the
+    # same weights: LLMConfig's generator seeded 0)
+    import tempfile
+
+    from ray_tpu_torch.llm import LLMConfig
+
+    bench_params = LLMConfig(model_config=cfg).load_params(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as storage:
+        for phase in (lambda: dag_phase(cfg, dev, smi, list(kernels), bench_params),
+                      lambda: workflow_phase(cfg, dev, smi, list(kernels), bench_params, storage),
+                      lambda: data_phase(cfg, dev, smi, list(kernels), bench_params)):
+            for path, counts in phase().items():
+                for name in kernels:
+                    launches[name][path] = counts[name]
+    del bench_params
     torch.cuda.empty_cache()
 
     # ---------------- training check ----------------

@@ -88,12 +88,10 @@ class ActorMethod:
         return refs[0] if num_returns == 1 else refs
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG node (reference: ray.dag — actor.method.bind). The
-        port has no ``dag/`` yet, so this raises until it does."""
-        raise NotImplementedError(
-            ".bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP.md Queue A item 4)"
-        )
+        """Lazy DAG node (reference: ray.dag — actor.method.bind)."""
+        from .dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def __call__(self, *a, **k):
         raise TypeError(f"Actor method '{self._name}' must be called with .remote()")

@@ -495,12 +495,10 @@ class RemoteFunction:
         return self._remote(args, kwargs, self._options)
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG node (reference: ray.dag — fn.bind). The port has no
-        ``dag/`` yet, so this raises until it does."""
-        raise NotImplementedError(
-            ".bind() needs ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP.md Queue A item 4)"
-        )
+        """Lazy DAG node (reference: ray.dag — fn.bind)."""
+        from .dag.dag_node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def _remote(self, args, kwargs, opts):
         from ._private import worker

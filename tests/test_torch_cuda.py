@@ -730,3 +730,89 @@ def test_cluster_agent_node_holds_the_card_and_runs_the_kernel(dev):
         assert (lse - rlse).abs().max().item() <= STAT_ATOL
     finally:
         c.shutdown()
+
+
+def test_iter_batches_stages_each_batch_on_the_card(dev):
+    """``iter_batches(device_put="cuda")``: every numeric column arrives as
+    a CUDA tensor equal to its rows, with and without prefetch, read on a
+    stream of the consumer's own; ``iter_torch_batches`` hands out the same
+    tensors; a string column stays numpy."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 257)).astype(np.float32)
+    tok = rng.integers(0, 32000, (64, 33)).astype(np.int32)
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        ds = data.from_items([{"x": x[i], "tok": tok[i], "s": f"r{i}"} for i in range(64)])
+        ds = ds.materialize()
+        consumer = torch.cuda.Stream()
+        for prefetch in (0, 2):
+            with torch.cuda.stream(consumer):
+                seen = 0
+                for b in ds.iter_batches(batch_size=8, device_put="cuda",
+                                         prefetch_batches=prefetch):
+                    assert b["x"].is_cuda and b["x"].dtype == torch.float32
+                    assert b["tok"].dtype == torch.int32 and b["tok"].is_cuda
+                    assert torch.equal(b["x"].cpu(), torch.from_numpy(x[seen:seen + 8]))
+                    assert torch.equal(b["tok"].cpu(), torch.from_numpy(tok[seen:seen + 8]))
+                    assert isinstance(b["s"], np.ndarray)
+                    seen += 8
+                assert seen == 64
+        t = [b["tok"] for b in ds.iter_torch_batches(batch_size=16, device_put="cuda")]
+        assert all(v.is_cuda for v in t) and torch.equal(torch.cat(t).cpu(), torch.from_numpy(tok))
+    finally:
+        rt.shutdown()
+
+
+def test_compiled_dag_drives_a_gpu_actor_through_channels(dev):
+    """A channel-mode compiled DAG on a ``num_gpus=1`` actor: the method
+    takes a numpy batch through the C++ ring, computes on the card and
+    returns numpy; five pipelined executes equal the driver's product on
+    the same card, with no task event between them; after teardown the
+    actor answers again."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        @rt.remote(num_gpus=1)
+        class Proj:
+            def __init__(self):
+                g = torch.Generator(device="cuda").manual_seed(0)
+                self.w = torch.randn(64, 32, generator=g, device="cuda")
+
+            def run(self, x):
+                return (torch.from_numpy(x).cuda() @ self.w).cpu().numpy()
+
+            def device(self):
+                return torch.cuda.get_device_name(0)
+
+        a = Proj.remote()
+        rt.get(a.device.remote(), timeout=120)
+        with InputNode() as inp:
+            inp.with_shm_channel((4, 64), "float32")
+            compiled = a.run.bind(inp).with_shm_channel((4, 32), "float32").experimental_compile(
+                max_inflight_executions=5)
+        assert compiled._channel_mode
+        assert {ch.backend for ch in compiled._edge_chans.values()} == {"native"}
+        xs = [np.random.default_rng(i).standard_normal((4, 64)).astype(np.float32)
+              for i in range(5)]
+        compiled.execute(xs[0]).get(timeout=120)  # warm
+        events = len(rt._private.worker.get_client().list_state("tasks"))
+        outs = [r.get(timeout=120) for r in [compiled.execute(x) for x in xs]]
+        assert len(rt._private.worker.get_client().list_state("tasks")) == events
+        compiled.teardown()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        w = torch.randn(64, 32, generator=g, device="cuda")
+        for x, o in zip(xs, outs):
+            assert np.array_equal(o, (torch.from_numpy(x).cuda() @ w).cpu().numpy())
+        assert rt.get(a.device.remote(), timeout=60) == torch.cuda.get_device_name(0)
+        rt.kill(a)
+    finally:
+        rt.shutdown()

@@ -1,9 +1,11 @@
 """The port stands alone: importing ray_tpu_torch (its train, air and
-serve libraries, ``llm``'s Serve deployments, and the multi-host modules
-included) and running it pulls in neither JAX nor the ray_tpu package,
-in the driver, in a runtime worker, in a worker a node agent forked, in
-a train worker or in a Serve replica, and its entry points refuse to run
-on the CPU unless asked to."""
+serve libraries, ``llm``'s Serve deployments and batch processor, dag,
+channels, workflow, data, and the multi-host modules included) and
+running it pulls in neither JAX nor the ray_tpu package, in the driver,
+in a runtime worker, in a worker a node agent forked, in a train worker,
+in a Serve replica, in the actor of a channel-mode compiled DAG or in a
+Data pool actor, and its entry points refuse to run on the CPU unless
+asked to."""
 
 import os
 import subprocess
@@ -50,7 +52,7 @@ vp = vit.init_params(torch.Generator().manual_seed(0), vit.VIT_TINY, "cpu")
 assert vit.forward(vp, torch.zeros((1, 32, 32, 3)), vit.VIT_TINY).shape == (1, 10)
 folded = apply_lora(params, {"lm_head.delta": torch.ones(cfg.dim, cfg.vocab_size).numpy()})
 assert folded["embed"] is params["embed"]
-ray_tpu_torch.init(num_cpus=1, max_workers=1)
+ray_tpu_torch.init(num_cpus=2, max_workers=2)  # a Data pool actor holds a CPU beside the read tasks
 @ray_tpu_torch.remote
 def worker_foreign():
     import sys
@@ -63,6 +65,32 @@ worker_bad = ray_tpu_torch.get(worker_foreign.remote(), timeout=60)
 actor = Adder.remote()
 assert bool((ray_tpu_torch.get(actor.add.remote(torch.zeros(3)), timeout=60) == 1).all())
 ray_tpu_torch.kill(actor)
+import numpy as np
+from ray_tpu_torch import dag, data, workflow
+from ray_tpu_torch.experimental.channel import ShmChannel
+from ray_tpu_torch.llm import batch, build_llm_processor
+@ray_tpu_torch.remote
+class Stage:
+    def run(self, x):
+        return x + 1
+    def foreign(self):
+        import sys
+        return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+stage = Stage.remote()
+with dag.InputNode() as inp:
+    compiled = stage.run.bind(inp).with_shm_channel((2,)).experimental_compile()
+assert compiled._channel_mode
+assert compiled.execute(np.zeros(2, np.float32)).get(timeout=60).tolist() == [1.0, 1.0]
+compiled.teardown()
+dag_actor_bad = ray_tpu_torch.get(stage.foreign.remote(), timeout=60)
+ray_tpu_torch.kill(stage)
+class PoolForeign:
+    def __call__(self, b):
+        import sys
+        bad = ",".join(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu")))
+        return {"id": b["id"], "bad": np.array([bad] * len(b["id"]))}
+pool_bad = sorted({str(r["bad"]) for r in data.range(4).map_batches(
+    PoolForeign, concurrency=1).take_all()})
 import shutil, tempfile
 from ray_tpu_torch import air, train
 def loop():
@@ -86,6 +114,8 @@ print("FOREIGN", bad)
 print("WORKER FOREIGN", worker_bad)
 print("TRAIN WORKER FOREIGN", result.metrics["foreign"])
 print("SERVE REPLICA FOREIGN", replica_bad)
+print("DAG ACTOR FOREIGN", dag_actor_bad)
+print("DATA POOL ACTOR FOREIGN", pool_bad)
 """
 
 
@@ -99,6 +129,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     assert "\nWORKER FOREIGN []" in out.stdout, out.stdout
     assert "TRAIN WORKER FOREIGN []" in out.stdout, out.stdout
     assert "SERVE REPLICA FOREIGN []" in out.stdout, out.stdout
+    assert "DAG ACTOR FOREIGN []" in out.stdout, out.stdout
+    assert "DATA POOL ACTOR FOREIGN ['']" in out.stdout, out.stdout
 
 
 _CLUSTER_PROBE = """

@@ -288,21 +288,30 @@ def test_resources_agree_but_for_the_accelerator_key(runtimes):
 
 
 def test_bind_raises_until_dag_is_ported(runtimes):
-    @ray_tpu_torch.remote
-    def f(x):
-        return x
+    """Named when ``.bind()`` raised; ``dag/`` is ported now, so it holds
+    ``.bind()`` to the reference's node types, of the port's own ``dag``
+    (test_torch_runtime_dag.py runs the graphs)."""
+    got = []
+    for rt in (ray_tpu, ray_tpu_torch):
+        @rt.remote
+        def f(x):
+            return x
 
-    @ray_tpu_torch.remote
-    class A:
-        def m(self):
-            return 1
+        @rt.remote
+        class A:
+            def m(self, y):
+                return y
 
-    with pytest.raises(NotImplementedError, match="dag"):
-        f.bind(1)
-    a = A.remote()
-    with pytest.raises(NotImplementedError, match="dag"):
-        a.m.bind()
-    ray_tpu_torch.kill(a)
+        a = A.remote()
+        fn, meth = f.bind(1), a.m.bind(2)
+        got.append([(type(n).__name__, type(n).__module__, n._bound_args)
+                    for n in (fn, meth)])
+        assert fn._remote_fn is f and meth._method._handle == a
+        assert rt.get(fn.execute(), timeout=T) == 1 and rt.get(meth.execute(), timeout=T) == 2
+        rt.kill(a)
+    assert got[1] == [(name, mod.replace("ray_tpu.", "ray_tpu_torch."), args)
+                      for name, mod, args in got[0]]
+    assert [m for _, m, _ in got[1]] == ["ray_tpu_torch.dag.dag_node"] * 2
 
 
 def test_client_mode_is_not_ported(runtimes):

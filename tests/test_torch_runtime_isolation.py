@@ -11,7 +11,9 @@ JAX nor ``ray_tpu`` and are given no ``RAY_TPU_`` variable of the
 reference's; and shutting the port down leaves the reference working.
 Also: no module of the port names a ``ray_tpu.`` module or reads a
 ``RAY_TPU_`` variable of the reference's, and the modules copied from
-the reference differ from it by the renames only.
+the reference differ from it by the renames only. Compiled DAGs of both
+packages run at once, each on its own channels (its own segment prefix,
+its own C++ ring module), and Data of both packages runs side by side.
 
 Clusters of both packages on one machine: two CLI heads share one
 ``HOME`` and each keeps its address and pid under its own state dir; a
@@ -111,6 +113,44 @@ def test_both_runtimes_run_side_by_side(runtimes):
     assert not [k for k in os.environ if k.startswith("RAY_TPU_TORCH_")]
     ray_tpu.kill(ra)
     ray_tpu_torch.kill(pa)
+
+
+def test_compiled_dags_and_data_of_both_packages_keep_apart(runtimes):
+    import numpy as np
+
+    compiled, names, mods = [], [], []
+    for rt, k in ((ray_tpu, 2.0), (ray_tpu_torch, 3.0)):
+        dag = __import__(f"{rt.__name__}.dag", fromlist=["dag"])
+
+        @rt.remote
+        class Scale:
+            def __init__(self, k):
+                self.k = k
+
+            def run(self, x):
+                return x * self.k
+
+        a = Scale.remote(k)
+        with dag.InputNode() as inp:
+            c = a.run.bind(inp).with_shm_channel((3,)).experimental_compile()
+        assert c._channel_mode
+        compiled.append((c, a, rt))
+        names.append([ch.name for ch in c._edge_chans.values()])
+        mods.append({ch._mod.__file__ for ch in c._edge_chans.values()})
+    refs = [c.execute(np.full(3, float(i), np.float32)) for i in range(4) for c, _, _ in compiled]
+    outs = [r.get(timeout=T).tolist() for r in refs]
+    assert outs == [[v * float(i)] * 3 for i in range(4) for v in (2.0, 3.0)]
+    assert all(n.startswith("rt_ch_") for n in names[0])
+    assert all(n.startswith("ray_tpu_torch_ch_") for n in names[1])
+    assert len(mods[0]) == len(mods[1]) == 1 and mods[0] != mods[1]
+    assert all("build/ray_tpu_torch/" in m for m in mods[1])
+    for c, a, rt in compiled:
+        c.teardown()
+        rt.kill(a)
+    rows = [sorted(r["id"] for r in __import__(f"{rt.__name__}.data", fromlist=["data"])
+                   .range(12).map_batches(lambda b: {"id": b["id"] * 2}).take_all())
+            for rt in (ray_tpu, ray_tpu_torch)]
+    assert rows[0] == rows[1] == list(range(0, 24, 2))
 
 
 def test_shutting_the_port_down_leaves_the_reference_working(runtimes):
@@ -234,6 +274,46 @@ def test_copied_cluster_module_differs_from_the_reference_by_the_renames_only(na
         want = _cluster_renames(f.read())
     with open(os.path.join(PORT_DIR, name)) as f:
         assert f.read() == want
+
+
+# dag, workflow and Data: copied with the same renames, the first list
+# byte for byte, the second but for docstrings and comments that spoke of
+# the TPU (their code, as parsed, is the reference's); the other modules of
+# the slice carry named edits (ROADMAP.md Queue C)
+SLICE8_VERBATIM = ["workflow/__init__.py", "dag/__init__.py", "data/aggregate.py",
+                   "data/block.py", "data/context.py", "data/datasource.py",
+                   "data/preprocessors.py", "data/_internal/__init__.py",
+                   "data/_internal/plan.py", "data/_internal/tfrecords.py",
+                   "_native/ring_channel.cpp"]
+SLICE8_SAME_CODE = ["dag/dag_node.py", "dag/compiled_dag.py", "data/__init__.py",
+                    "experimental/channel/__init__.py"]
+
+
+@pytest.mark.parametrize("name", SLICE8_VERBATIM)
+def test_copied_slice8_module_differs_from_the_reference_by_the_renames_only(name):
+    with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
+        want = _cluster_renames(f.read())
+    with open(os.path.join(PORT_DIR, name)) as f:
+        assert f.read() == want
+
+
+def _code(src):
+    """The module as parsed, without docstrings."""
+    tree = ast.parse(src)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", SLICE8_SAME_CODE)
+def test_copied_slice8_module_has_the_reference_code_with_the_renames(name):
+    with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
+        want = _code(_cluster_renames(f.read()))
+    with open(os.path.join(PORT_DIR, name)) as f:
+        assert _code(f.read()) == want
 
 
 def _cli_env(home, pkg):

@@ -4,9 +4,10 @@
 The report of each runtime holds the libraries and tags recorded, the
 node count, and the source, which names the package that wrote it
 (``ray_tpu_torch`` on the port, where every name the runtime writes
-carries that prefix). Importing ``llm`` records "llm" on both, checked
-in a fresh process for each package, since a package imported before
-``init`` records only into the first runtime it meets.
+carries that prefix). Importing ``llm`` records "llm" on both, and
+importing ``data`` and ``workflow`` records "data" and "workflow",
+checked in a fresh process for each package, since a package imported
+before ``init`` records only into the first runtime it meets.
 
 Cost: one runtime per package in this process, and one short-lived
 process per package.
@@ -47,7 +48,7 @@ def test_usage_stats_report(rt):
 
 PROBE = """
 import sys; sys.path.insert(0, {repo!r})
-import {rt}.llm
+import {rt}.{lib}
 import {rt} as rt
 from {rt}._private import usage
 rt.init(num_cpus=1, max_workers=1)
@@ -58,7 +59,17 @@ rt.shutdown()
 
 @pytest.mark.parametrize("rt", RTS, ids=IDS)
 def test_importing_llm_records_its_usage(rt):
-    out = subprocess.run([sys.executable, "-c", PROBE.format(repo=REPO, rt=rt.__name__)],
+    out = subprocess.run([sys.executable, "-c", PROBE.format(repo=REPO, rt=rt.__name__,
+                                                             lib="llm")],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LIBS ['llm']" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("rt", RTS, ids=IDS)
+def test_importing_data_and_workflow_records_their_usage(rt):
+    out = subprocess.run([sys.executable, "-c", PROBE.format(
+        repo=REPO, rt=rt.__name__, lib="data, {rt}.workflow".format(rt=rt.__name__))],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LIBS ['data', 'workflow']" in out.stdout, out.stdout
