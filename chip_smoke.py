@@ -142,6 +142,29 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    kernel launched in its pool actor (read through ``__ray_call__`` while
    the stage's output is still open). Printed: rows/s, ms per batch with
    each prefetch, one batch's host-to-card copy, tokens/s;
+6i. tune phase, in its own ``init(num_cpus=2)``: a ``Tuner`` over a
+   function trainable ``with_resources(..., {"GPU": 1})`` that trains
+   ``LLAMA_BENCH`` as the trainer phase does (``trainer_setup``/
+   ``trainer_loop`` at the trial's learning rate) for 3 steps on the
+   runtime phase's batch, a ``grid_search`` over two learning rates: the
+   two trials must run one after another (the second starts after the
+   first's last step, when no process of the first runs), each pinned
+   '0', the driver's card by UUID; each trial's losses must be bit-equal
+   to the same lr run in this process first, and ``get_best_result("loss",
+   "min")`` must pick the lower last loss. Then a ``Tuner`` wrapping a
+   ``use_gpu`` ``TorchTrainer`` of the same loop at 2 layers (full width),
+   3 steps, the same grid, one trial at a time: the same checks, and the
+   hub's actor table must show each trial's actor on a CPU and its gang's
+   worker holding the GPU. Printed: each trial's placement s, step ms
+   beside the in-process steps, ``fit()`` s and launch counts;
+6j. collective phase: an "nccl" group over this process's cards (world
+   size 1 here): allreduce under every ``ReduceOp``, reduce, broadcast,
+   allgather and reducescatter on f32 and bf16 tensors of one
+   ``LLAMA_BENCH`` layer's parameter count (47.19 M), each held against
+   the group's plain path on CPU copies and timed (ms, GB/s), then barrier
+   and send/recv; a "store" group of a ``num_gpus=1`` actor with CUDA
+   tensors and a CPU actor: allreduce and allgather of 4 M f32 bit-equal to
+   numpy's, each result on its rank's device;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -182,7 +205,9 @@ its per-batch columns, and ``data_staging`` (8) in this process must
 launch the flash forward once per layer and the CE forward once per
 batch, and ``llm_processor`` none. The ``trainer`` path is counted in the gang's
 worker, zeroed there before each step and read after it: each step must
-launch all seven kernels as a training step does. ``--profile`` adds a
+launch all seven kernels as a training step does; so must each step of
+``tune_trial`` (counted in the trial's actor) and of ``tune_trainer``
+(in the wrapped trainer's worker; 2 layers). ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
 (whose printed times then carry the profiler's cost), of one training
 step, with the optimizer update's share of it, of one MoE training step,
@@ -684,24 +709,40 @@ def runtime_phase(cfg, dev, smi: str, kernel_names) -> dict:
 TRAINER_STEPS, TRAINER_CHECKPOINT_AT, TRAINER_FAIL_AT = 4, 2, 3
 
 
-def trainer_setup(cfg, dev):
-    """(train state, train step) of the trainer phase, the same in the
-    driver and in the gang's worker: ``cfg`` (LLAMA_BENCH, bf16 parameters)
-    with remat, flash attention and the fused CE, parameters from a fresh
-    generator seeded 0 (as ``LLMConfig.load_params``), and
-    ``default_optimizer(1e-4, warmup_steps=10, total_steps=1000)``."""
+def trainer_setup(cfg, dev, lr: float = 1e-4):
+    """(train state, train step) of the trainer and tune phases, the same
+    in the driver and in the gang's worker or the trial's: ``cfg``
+    (LLAMA_BENCH, bf16 parameters) with remat, flash attention and the
+    fused CE, parameters from a fresh generator seeded 0 (as
+    ``LLMConfig.load_params``), and ``default_optimizer(lr,
+    warmup_steps=10, total_steps=1000)``."""
     from ray_tpu_torch import parallel
     from ray_tpu_torch.models import llama
 
     tcfg = dataclasses.replace(cfg, remat=True, attention_impl="flash", ce_impl="fused")
-    opt = parallel.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+    opt = parallel.default_optimizer(lr, warmup_steps=10, total_steps=1000)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = parallel.create_train_state(gen, lambda g: llama.init_params(g, tcfg, dev), opt, dev)
     return state, parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, tcfg), opt)
 
 
+def _running(pids) -> list:
+    """Those of ``pids`` whose process still runs (not gone, not a zombie)."""
+    out = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    out.append(pid)
+        except OSError:
+            pass
+    return out
+
+
 def trainer_loop(config):
-    """The train loop of the trainer phase, run by the gang's worker.
+    """The train loop of the trainer and tune phases, run by the gang's
+    worker or the trial's actor, at learning rate ``config.get("lr",
+    1e-4)``.
 
     Each step zeroes the seven launch counters of this process, runs the
     train step and reports its loss, grad norm, host-clock ms (ending in a
@@ -709,7 +750,9 @@ def trainer_loop(config):
     ``Checkpoint.from_torch(state)``; on the first attempt only (no marker
     file yet) it raises before step ``fail_at``. A restarted worker resumes
     from ``get_checkpoint()``. Events with their wall-clock times go to
-    ``config["log"]``, one JSON object a line."""
+    ``config["log"]``, one JSON object a line: the start (with the card
+    this process sees and which processes of earlier starts still run),
+    each step, a checkpoint, a failure and a resume."""
     import json
     import os
     import shutil
@@ -726,10 +769,15 @@ def trainer_loop(config):
     dev = torch.device("cuda", 0)
     first = not os.path.exists(config["marker"])
     props = torch.cuda.get_device_properties(dev)
+    earlier = []
+    if os.path.exists(config["log"]):
+        with open(config["log"]) as f:
+            earlier = [e["pid"] for e in map(json.loads, f) if e["event"] == "start"]
     note(event="start", attempt=1 if first else 2, t=time.time(), pid=os.getpid(),
          visible=os.environ.get("CUDA_VISIBLE_DEVICES"), count=torch.cuda.device_count(),
-         name=props.name, uuid=str(props.uuid))
-    state, step = trainer_setup(config["cfg"], dev)
+         name=props.name, uuid=str(props.uuid), lr=config.get("lr", 1e-4),
+         free_gib=torch.cuda.mem_get_info(dev)[0] / 2**30, earlier_running=_running(earlier))
+    state, step = trainer_setup(config["cfg"], dev, config.get("lr", 1e-4))
     ckpt = train.get_checkpoint()
     if ckpt is not None:
         t0 = time.perf_counter()
@@ -756,6 +804,7 @@ def trainer_loop(config):
                    "grad_norm": m["grad_norm"].item(), "step_ms": ms,
                    "launches": {n: w.launches for n, w in wrappers.items()},
                    "pid": os.getpid(), "nvcc_s": build.build_seconds}
+        note(event="step", t=time.time(), **metrics)
         if m["step"] != config["checkpoint_at"]:
             train.report(metrics)
             continue
@@ -770,6 +819,19 @@ def trainer_loop(config):
         shutil.rmtree(tmp)
         note(event="checkpoint", step=m["step"], bytes=nbytes, save_s=save_s,
              commit_s=commit_s)
+
+
+def train_step_counts(cfg, tokens) -> dict:
+    """The launches of one training step of ``cfg`` with remat on a (B, S+1)
+    token batch: the flash forward twice a layer, each attention backward
+    kernel once a layer, the CE forward once, each CE backward kernel once
+    a chunk of rows (``cuda_ce.chunk_rows``: a 256 MiB bf16 dlog budget)."""
+    n_rows = tokens.shape[0] * (tokens.shape[1] - 1)
+    ce_chunks = -(-n_rows // (256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128))
+    return {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd_dkv": cfg.n_layers,
+            "flash_attention_bwd_dq": cfg.n_layers, "fused_ce_fwd": 1,
+            "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
+            "fused_ce_bwd_dw": ce_chunks}
 
 
 def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
@@ -880,12 +942,7 @@ def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
         f"{losses == here}; grad norms {gnorms}")
     fail_unless(max(errs) <= TRAIN_LOSS_RTOL,
                 f"trainer: loss relative err {max(errs)} > {TRAIN_LOSS_RTOL}")
-    n_rows = tokens.shape[0] * (tokens.shape[1] - 1)
-    ce_chunks = -(-n_rows // (256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128))
-    want = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd_dkv": cfg.n_layers,
-            "flash_attention_bwd_dq": cfg.n_layers, "fused_ce_fwd": 1,
-            "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
-            "fused_ce_bwd_dw": ce_chunks}
+    want = train_step_counts(cfg, tokens)
     for r in collect.rows:
         fail_unless(r["launches"] == want,
                     f"trainer: step {r['step']} launched {r['launches']}, want {want}")
@@ -2014,6 +2071,286 @@ def data_phase(cfg, dev, smi: str, kernel_names, params) -> dict:
     return counted
 
 
+
+# The tune phase: the grid's learning rates, the steps of each trial, and
+# the depth and steps of the Trainer the second Tuner wraps.
+TUNE_LRS, TUNE_STEPS = (1e-4, 3e-4), 3
+TUNE_TRAINER_LAYERS, TUNE_TRAINER_STEPS = 2, 3
+
+
+def tune_trial(config):
+    """The function trainable of the tune phase: ``trainer_loop`` in the
+    trial's actor, at the trial's learning rate."""
+    trainer_loop(config)
+
+
+def _trials(events):
+    """{pid: (start event, [step events])} of a trainer_loop log, in the
+    order the processes started."""
+    out = {}
+    for e in events:
+        if e["event"] == "start":
+            out[e["pid"]] = (e, [])
+        elif e["event"] == "step":
+            out[e["pid"]][1].append(e)
+    return out
+
+
+def tune_phase(cfg, dev, smi: str, kernel_names) -> dict:
+    """The tune phase: a ``Tuner`` over ``tune_trial`` with ``{"GPU": 1}``,
+    a grid of ``TUNE_LRS``, ``TUNE_STEPS`` steps of ``LLAMA_BENCH`` each on
+    the runtime phase's batch, the trials pinned to the card one after
+    another; then a ``Tuner`` wrapping a ``use_gpu`` ``TorchTrainer`` of
+    ``trainer_loop`` at ``TUNE_TRAINER_LAYERS`` layers (full width) over the
+    same grid, one trial at a time, whose gang, not its trial actor, must
+    hold the card. Each trial's losses are held bit for bit against the
+    same lr run in this process first, and each step, counted in the
+    process that trains, must launch all seven kernels. Returns the launch
+    counts summed over the steps ({"tune_trial": ..., "tune_trainer":
+    ...})."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune
+
+    def tag(line):
+        print(f"tune [{smi}]: {line}")
+
+    tokens, _ = bench_inputs(cfg)
+    wcfg = dataclasses.replace(cfg, n_layers=TUNE_TRAINER_LAYERS)
+    batch = {"tokens": tokens.to(dev)}
+    here, here_ms = {}, {}
+    for key, c, n in (("trial", cfg, TUNE_STEPS), ("trainer", wcfg, TUNE_TRAINER_STEPS)):
+        for lr in TUNE_LRS:
+            state, step = trainer_setup(c, dev, lr)
+            losses, ms = [], []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(m["loss"].item())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            here[key, lr], here_ms[key, lr] = losses, ms
+            del state, step, m
+            torch.cuda.empty_cache()
+    del batch
+    props = torch.cuda.get_device_properties(dev)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    base = {"cfg": cfg, "tokens": tokens, "steps": TUNE_STEPS, "checkpoint_at": 0,
+            "fail_at": TUNE_STEPS + 1, "kernel_names": list(kernel_names),
+            "log": os.path.join(root, "trials.jsonl"), "marker": os.path.join(root, "never"),
+            "scratch": root}
+    wrapped_config = {**base, "cfg": wcfg, "steps": TUNE_TRAINER_STEPS,
+                      "fail_at": TUNE_TRAINER_STEPS + 1,
+                      "log": os.path.join(root, "gangs.jsonl")}
+    rt.init(num_cpus=2)
+    try:
+        t_fit = time.time()
+        grid = tune.Tuner(
+            tune.with_resources(tune_trial, {"GPU": 1}),
+            param_space={**base, "lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            run_config=train.RunConfig(name="llama_bench", storage_path=os.path.join(root, "runs")),
+        ).fit()
+        fit_s = time.time() - t_fit
+        client = rt._private.worker.get_client()
+        before = {a["actor_id"] for a in client.list_state("actors")}
+        trainer = train.TorchTrainer(
+            trainer_loop, train_loop_config=wrapped_config,
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name="inner", storage_path=os.path.join(root, "runs")))
+        t_wrap = time.time()
+        wgrid = tune.Tuner(
+            trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=1),
+            run_config=train.RunConfig(name="llama_bench_trainer",
+                                       storage_path=os.path.join(root, "runs")),
+        ).fit()
+        wrap_s = time.time() - t_wrap
+        actors = [a for a in client.list_state("actors") if a["actor_id"] not in before]
+    finally:
+        rt.shutdown()
+    try:
+        with open(base["log"]) as f:
+            trials = _trials(map(json.loads, f))
+        with open(wrapped_config["log"]) as f:
+            gangs = _trials(map(json.loads, f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    counted = {}
+    for path, key, res, runs, c, n, t_start, s_total in (
+            ("tune_trial", "trial", grid, trials, cfg, TUNE_STEPS, t_fit, fit_s),
+            ("tune_trainer", "trainer", wgrid, gangs, wcfg, TUNE_TRAINER_STEPS, t_wrap, wrap_s)):
+        fail_unless(not res.errors, f"tune: {path} trials ended in error: {res.errors}")
+        fail_unless(len(res) == len(TUNE_LRS) and len(runs) == len(TUNE_LRS),
+                    f"tune: {path}: {len(res)} results from {len(runs)} processes")
+        want = train_step_counts(c, tokens)
+        for start, steps in runs.values():
+            lr = start["lr"]
+            tag(f"{path} lr {lr}: pid {start['pid']}, CUDA_VISIBLE_DEVICES={start['visible']!r}, "
+                f"sees {start['count']} card(s), {start['name']} {start['uuid']}, "
+                f"{start['free_gib']:.2f} GiB free at its start; earlier trials' processes "
+                f"still running: {start['earlier_running']}")
+            fail_unless(start["visible"] == "0" and start["count"] == 1
+                        and start["uuid"] == str(props.uuid),
+                        f"tune: {path} lr {lr} saw {start['count']} cards ({start['visible']!r}, "
+                        f"{start['uuid']}); the driver's card is {props.uuid}")
+            fail_unless(not start["earlier_running"],
+                        f"tune: {path} lr {lr} started while {start['earlier_running']} ran")
+            losses = [e["loss"] for e in steps]
+            fail_unless(len(steps) == n and all(e["launches"] == want for e in steps),
+                        f"tune: {path} lr {lr} launched {[e['launches'] for e in steps]}, "
+                        f"want {n} x {want}")
+            fail_unless(losses == here[key, lr],
+                        f"tune: {path} lr {lr} losses {losses}, in-process {here[key, lr]}")
+            worker_ms = " ".join(f"{e['step_ms']:.2f}" for e in steps)
+            local_ms = " ".join(f"{v:.2f}" for v in here_ms[key, lr])
+            tag(f"{path} lr {lr}: losses {' '.join(repr(v) for v in losses)}, bit-equal to "
+                f"the in-process run; step ms {worker_ms} (in-process {local_ms}); launches "
+                f"per step {want}")
+        (first, first_steps), (second, _) = runs.values()
+        fail_unless(second["t"] > first_steps[-1]["t"],
+                    f"tune: {path}'s second trial started before the first's last step ended")
+        best = res.get_best_result("loss", "min")
+        lowest = min(TUNE_LRS, key=lambda lr: here[key, lr][-1])
+        fail_unless(best.metrics["config"]["lr"] == lowest,
+                    f"tune: {path}'s best result is lr {best.metrics['config']['lr']}, the lowest "
+                    f"last loss is lr {lowest}'s")
+        tag(f"{path}: placement {first['t'] - t_start:.2f} s from fit() to the first trial's loop, {second['t'] - first_steps[-1]['t']:.2f} s "
+            f"from the first trial's last step to the second's loop; fit() {s_total:.2f} s; "
+            f"best lr {lowest} (last loss {here[key, lowest][-1]!r})")
+        counted[path] = {name: sum(e["launches"][name] for _, st in runs.values() for e in st)
+                         for name in kernel_names}
+    gpu = [a for a in actors if a["resources"].get("GPU")]
+    tag(f"tune_trainer actors: {[a['resources'] for a in actors]}")
+    fail_unless(len(actors) == 2 * len(TUNE_LRS) and len(gpu) == len(TUNE_LRS)
+                and all(a["resources"] == {"CPU": 1.0} for a in actors if a not in gpu),
+                f"tune: the wrapped trainer's trial actors and gangs held {actors}; want each "
+                f"trial's actor on a CPU and its gang's worker on the GPU")
+    return counted
+
+
+def collective_phase(cfg, dev, smi: str) -> None:
+    """The collective phase: an "nccl" group over this process's cards,
+    each op (allreduce under every ReduceOp, reduce, broadcast, allgather,
+    reducescatter, barrier, send/recv) on f32 and bf16 tensors of one
+    ``LLAMA_BENCH`` layer's parameter count, held against the group's plain
+    path on CPU copies and timed (CUDA events); then a "store" group of a
+    ``num_gpus=1`` actor holding CUDA tensors and a CPU actor, whose
+    allreduce and allgather must be bit-equal to numpy's, each result on
+    its rank's device."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util.collective import types
+
+    def tag(line):
+        print(f"collective [{smi}]: {line}")
+
+    n_dev = torch.cuda.device_count()
+    numel = (llama.param_count(cfg) - 2 * cfg.vocab_size * cfg.dim - cfg.dim) // cfg.n_layers
+    g = col.init_collective_group(n_dev, 0, group_name="chip_smoke")
+    plain = col.init_collective_group(n_dev, 0, group_name="chip_smoke_plain",
+                                      devices=["cpu"] * n_dev)
+    fail_unless(g.backend == "nccl", f"collective: the default backend is {g.backend}")
+    gen = torch.Generator().manual_seed(3)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [(torch.rand(numel, generator=gen) + 0.5).to(dtype) for _ in range(n_dev)]
+            on_card = [x.to(f"cuda:{i}") for i, x in enumerate(xs)]
+            rtol = 1e-6 if dtype == torch.float32 else 1e-2
+            mb = xs[0].numel() * xs[0].element_size() / 1e6
+            cases = [(f"allreduce {op.name}", lambda t, o=op: g.allreduce(t, types.AllReduceOptions(reduceOp=o)),
+                      lambda t, o=op: plain.allreduce(t, types.AllReduceOptions(reduceOp=o)),
+                      op in (types.ReduceOp.MIN, types.ReduceOp.MAX)) for op in types.ReduceOp]
+            cases += [
+                ("reduce SUM", lambda t: g.reduce(t, types.ReduceOptions(root_rank=0)),
+                 lambda t: plain.reduce(t, types.ReduceOptions(root_rank=0)), False),
+                ("broadcast", lambda t: g.broadcast(t, types.BroadcastOptions(root_rank=0)),
+                 lambda t: plain.broadcast(t, types.BroadcastOptions(root_rank=0)), True),
+                ("allgather", g.allgather, plain.allgather, True),
+                ("reducescatter SUM", g.reducescatter, plain.reducescatter, False),
+            ]
+            for name, op, ref_op, exact in cases:
+                outs, refs = op(on_card), ref_op(xs)
+                err = max((o.cpu().float() - r.float()).abs().max().item()
+                          for o, r in zip(outs, refs))
+                ok = all(o.device == torch.device("cuda", i) and o.dtype == r.dtype
+                         and torch.allclose(o.cpu().float(), r.float(), rtol=0 if exact else rtol,
+                                            atol=0) for i, (o, r) in enumerate(zip(outs, refs)))
+                fail_unless(ok, f"collective: nccl {name} {dtype} differs from the plain path "
+                                f"(max abs err {err})")
+                del outs, refs
+                ms = time_ms(lambda: op(on_card), 10)
+                tag(f"nccl {name} {str(dtype)[6:]} x {numel} on {n_dev} card(s): max abs err "
+                    f"{err:.3e} against the plain path; {ms:.4f} ms, {mb / ms:.1f} GB/s of one "
+                    f"rank's {mb:.1f} MB")
+            g.barrier()
+            g.send([on_card[0]], types.SendOptions(dst_rank=n_dev - 1))
+            got = g.recv(types.RecvOptions(src_rank=n_dev - 1))
+            fail_unless(got.device == torch.device("cuda", n_dev - 1)
+                        and torch.equal(got.cpu(), xs[0]), f"collective: send/recv {dtype}")
+            fail_unless(all(torch.equal(c.cpu(), x) for c, x in zip(on_card, xs)),
+                        f"collective: an op changed its {dtype} inputs")
+            tag(f"nccl barrier and send/recv {str(dtype)[6:]}: done, inputs untouched")
+            del xs, on_card, got
+    finally:
+        col.destroy_collective_group("chip_smoke")
+        col.destroy_collective_group("chip_smoke_plain")
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(5)
+    data = [rng.standard_normal(1 << 22).astype(np.float32) for _ in range(2)]
+    rt.init(num_cpus=2)
+    try:
+        @rt.remote
+        class Rank:
+            def run(self, rank, x):
+                import time
+
+                from ray_tpu_torch.util import collective as c
+
+                t = torch.from_numpy(x).to("cuda" if rank == 0 else "cpu")
+                c.init_collective_group(2, rank, backend="store", group_name="chip_smoke_store")
+                try:
+                    t0 = time.perf_counter()
+                    red = c.allreduce(t, group_name="chip_smoke_store")
+                    ar_s = time.perf_counter() - t0
+                    gat = c.allgather(t, group_name="chip_smoke_store")
+                finally:
+                    c.destroy_collective_group("chip_smoke_store")
+                return {"card": card_of(), "devices": [str(red.device), str(gat.device)],
+                        "allreduce": red.cpu().numpy(), "allgather": gat.cpu().numpy(),
+                        "allreduce_s": ar_s}
+
+        ranks = [Rank.options(num_gpus=1).remote(), Rank.remote()]
+        outs = rt.get([a.run.remote(r, data[r]) for r, a in enumerate(ranks)], timeout=300)
+        for a in ranks:
+            rt.kill(a)
+    finally:
+        rt.shutdown()
+    want_sum, want_stack = np.stack(data).sum(axis=0), np.stack(data)
+    for r, out in enumerate(outs):
+        dev_want = "cuda:0" if r == 0 else "cpu"
+        tag(f"store rank {r}: pid {out['card']['pid']}, CUDA_VISIBLE_DEVICES="
+            f"{out['card']['visible']!r}, {out['card']['count']} card(s); results on "
+            f"{out['devices']}; allreduce of {data[r].nbytes / 1e6:.1f} MB in "
+            f"{out['allreduce_s'] * 1e3:.2f} ms ({data[r].nbytes / 1e9 / out['allreduce_s']:.3f} "
+            f"GB/s)")
+        fail_unless(out["devices"] == [dev_want, dev_want],
+                    f"collective: store rank {r}'s results are on {out['devices']}")
+        fail_unless(out["card"]["count"] == (1 if r == 0 else 0),
+                    f"collective: store rank {r} sees {out['card']['count']} cards")
+        fail_unless(out["allreduce"].tobytes() == want_sum.tobytes()
+                    and out["allgather"].tobytes() == want_stack.tobytes(),
+                    f"collective: store rank {r}'s results are not bit-equal to numpy's")
+    tag("store allreduce and allgather across a GPU actor (CUDA tensors) and a CPU actor: "
+        "bit-equal to numpy on both ranks")
+
 def main(argv) -> int:
     t_main = time.perf_counter()
     profile = argv == ["--profile"]
@@ -2523,6 +2860,16 @@ def main(argv) -> int:
                     launches[name][path] = counts[name]
     del bench_params
     torch.cuda.empty_cache()
+
+    # ---------------- tune phase (main paths) ----------------
+    # each trial's actor and each wrapped trainer's worker has its own CUDA context
+    for path, counts in tune_phase(cfg, dev, smi, list(kernels)).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
+
+    # ---------------- collective phase ----------------
+    collective_phase(cfg, dev, smi)
 
     # ---------------- training check ----------------
     train_cfg = dataclasses.replace(cfg, remat=True)

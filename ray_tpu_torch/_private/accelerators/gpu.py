@@ -28,16 +28,20 @@ VISIBLE_ENV = "CUDA_VISIBLE_DEVICES"
 pinned_positions: List[int] = []
 
 
-def _nvidia_smi_count(timeout: float = 10.0) -> int:
+def nvidia_smi_names(timeout: float = 10.0) -> List[str]:
+    """The names of the node's GPUs as ``nvidia-smi -L`` lists them (none
+    where it is missing or fails)."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "-L"], capture_output=True, text=True, timeout=timeout
         )
     except (OSError, subprocess.SubprocessError):
-        return 0
+        return []
     if out.returncode != 0:
-        return 0
-    return sum(1 for line in out.stdout.splitlines() if line.startswith("GPU "))
+        return []
+    # "GPU 0: NVIDIA H100 80GB HBM3 (UUID: GPU-...)"
+    return [line.split(":", 1)[1].rsplit(" (UUID", 1)[0].strip()
+            for line in out.stdout.splitlines() if line.startswith("GPU ")]
 
 
 def visible_ids(value: Optional[str]) -> Optional[List[str]]:
@@ -64,7 +68,7 @@ class GPUAcceleratorManager(AcceleratorManager):
         visible = visible_ids(os.environ.get(VISIBLE_ENV))
         if visible is not None:
             return len(visible)
-        return _nvidia_smi_count()
+        return len(nvidia_smi_names())
 
     @staticmethod
     def get_current_node_accelerator_type() -> Optional[str]:

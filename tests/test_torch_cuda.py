@@ -26,7 +26,10 @@ is a 2-layer MoE at hd 128 with its routing pinned to the plain path's
 without the pin the bf16 differences of the two attention paths send
 some tokens to other experts (PERF.md). moe_ffn in f32 on the card
 against itself on the CPU: the same dispatch, outputs within atol 1e-4
-(f32 products, TF32 off).
+(f32 products, TF32 off). A one-trial Tuner pinned to the card trains
+through every kernel, its losses within 1e-4 of the same steps in this
+process, and an "nccl" group's ops on the card match its plain path (f32
+rtol 1e-6, bf16 1e-2: sums over the cards in another order).
 """
 
 import dataclasses
@@ -816,3 +819,109 @@ def test_compiled_dag_drives_a_gpu_actor_through_channels(dev):
         rt.kill(a)
     finally:
         rt.shutdown()
+
+
+def test_tuner_trial_pinned_to_the_card_trains_through_every_kernel(dev, tmp_path):
+    """A one-trial Tuner over a trainable that asks for {"GPU": 1}: the
+    trial's actor is pinned one card, the driver's, and trains LLAMA_TINY at
+    hd 64 (bf16 params, remat, flash + fused) for two steps whose losses
+    equal the same steps in this process (relative 1e-4), each step
+    launching all seven kernels, counted in the trial's process."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, n_heads=2, n_kv_heads=1, remat=True,
+                              param_dtype=torch.bfloat16, attention_impl="flash",
+                              ce_impl="fused")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129),
+                           generator=torch.Generator().manual_seed(12))
+
+    def setup(lr, device):
+        opt = parallel.default_optimizer(lr, warmup_steps=1, total_steps=10)
+        state = parallel.create_train_state(torch.Generator(device=device).manual_seed(11),
+                                            lambda g: llama.init_params(g, cfg, device), opt)
+        return state, parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+
+    state, step = setup(3e-3, dev)
+    here = []
+    for _ in range(2):
+        state, m = step(state, {"tokens": tokens.to(dev)})
+        here.append(m["loss"].item())
+    del state
+
+    def trainable(config):
+        import os
+
+        device = torch.device("cuda", 0)
+        kernels = (cuda_attention.flash_attention_fwd, cuda_attention.flash_attention_bwd_dkv,
+                   cuda_attention.flash_attention_bwd_dq, cuda_ce.fused_ce_fwd,
+                   cuda_ce.fused_ce_bwd_dlog, cuda_ce.fused_ce_bwd_dx, cuda_ce.fused_ce_bwd_dw)
+        state, step = setup(config["lr"], device)
+        for _ in range(2):
+            for k in kernels:
+                k.launches = 0
+            state, m = step(state, {"tokens": tokens.to(device)})
+            tune.report({"loss": m["loss"].item(), "launches": [k.launches for k in kernels],
+                         "visible": os.environ["CUDA_VISIBLE_DEVICES"],
+                         "uuid": str(torch.cuda.get_device_properties(0).uuid)})
+
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        grid = tune.Tuner(tune.with_resources(trainable, {"GPU": 1}),
+                          param_space={"lr": tune.grid_search([3e-3])},
+                          tune_config=tune.TuneConfig(metric="loss", mode="min"),
+                          run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    finally:
+        rt.shutdown()
+    assert not grid.errors, grid.errors
+    last = grid.get_best_result().metrics
+    assert last["training_iteration"] == 2 and len(last["visible"].split(",")) == 1
+    assert last["uuid"] == str(torch.cuda.get_device_properties(dev).uuid)
+    assert abs(last["loss"] - here[1]) <= 1e-4 * abs(here[1]), (last["loss"], here)
+    assert last["launches"] == [4, 2, 2, 1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nccl_group_on_the_card_matches_the_plain_path(dev, dtype):
+    """An "nccl" group over every card of this process: each op, and each
+    ReduceOp of allreduce, reduce and reducescatter, through NCCL, against
+    the group's plain path on CPU copies of the same tensors (f32 within
+    rtol 1e-6, bf16 within 1e-2; MIN, MAX, broadcast and allgather exact)."""
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util.collective import types
+
+    n = torch.cuda.device_count()
+    g = col.init_collective_group(n, 0, group_name=f"cuda_{dtype}")
+    plain = col.init_collective_group(n, 0, group_name=f"plain_{dtype}", devices=["cpu"] * n)
+    try:
+        gen = torch.Generator().manual_seed(0)
+        xs = [torch.rand(4 * n, 33, generator=gen).add(0.5).to(dtype) for _ in range(n)]
+        on_card = [x.to(f"cuda:{i}") for i, x in enumerate(xs)]
+        rtol = 1e-6 if dtype == torch.float32 else 1e-2
+
+        def same(outs, refs, exact=False):
+            assert len(outs) == len(refs) == n
+            for i, (o, r) in enumerate(zip(outs, refs)):
+                assert o.device == torch.device("cuda", i) and o.dtype == r.dtype
+                torch.testing.assert_close(o.cpu(), r, rtol=0 if exact else rtol, atol=0)
+
+        for op in types.ReduceOp:
+            exact = op in (types.ReduceOp.MIN, types.ReduceOp.MAX)
+            same(g.allreduce(on_card, types.AllReduceOptions(reduceOp=op)),
+                 plain.allreduce(xs, types.AllReduceOptions(reduceOp=op)), exact)
+            same(g.reduce(on_card, types.ReduceOptions(reduceOp=op, root_rank=n - 1)),
+                 plain.reduce(xs, types.ReduceOptions(reduceOp=op, root_rank=n - 1)), exact)
+            same(g.reducescatter(on_card, types.ReduceScatterOptions(reduceOp=op)),
+                 plain.reducescatter(xs, types.ReduceScatterOptions(reduceOp=op)), exact)
+        same(g.broadcast(on_card, types.BroadcastOptions(root_rank=0)),
+             plain.broadcast(xs, types.BroadcastOptions(root_rank=0)), exact=True)
+        same(g.allgather(on_card), plain.allgather(xs), exact=True)
+        g.barrier()
+        g.send([on_card[0]], types.SendOptions(dst_rank=n - 1))
+        got = g.recv(types.RecvOptions(src_rank=n - 1))
+        assert got.device == torch.device("cuda", n - 1) and torch.equal(got.cpu(), xs[0])
+        assert all(torch.equal(c.cpu(), x) for c, x in zip(on_card, xs))  # inputs untouched
+    finally:
+        col.destroy_collective_group(f"cuda_{dtype}")
+        col.destroy_collective_group(f"plain_{dtype}")

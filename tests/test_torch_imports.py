@@ -1,11 +1,12 @@
 """The port stands alone: importing ray_tpu_torch (its train, air and
 serve libraries, ``llm``'s Serve deployments and batch processor, dag,
-channels, workflow, data, and the multi-host modules included) and
-running it pulls in neither JAX nor the ray_tpu package, in the driver,
-in a runtime worker, in a worker a node agent forked, in a train worker,
-in a Serve replica, in the actor of a channel-mode compiled DAG or in a
-Data pool actor, and its entry points refuse to run on the CPU unless
-asked to."""
+channels, workflow, data, the multi-host modules, tune, util.collective
+and the rest of util included) and running it pulls in neither JAX nor
+the ray_tpu package, in the driver, in a runtime worker, in a worker a
+node agent forked, in a train worker, in a Serve replica, in the actor of
+a channel-mode compiled DAG, in a Data pool actor, in a Tune trial or in
+a store group's rank, and its entry points refuse to run on the CPU
+unless asked to."""
 
 import os
 import subprocess
@@ -167,6 +168,54 @@ def test_cluster_modules_import_neither_jax_nor_ray_tpu():
     assert out.returncode == 0, out.stderr
     assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
     assert "\nAGENT WORKER FOREIGN []" in out.stdout, out.stdout
+
+
+_SLICE9_PROBE = """
+import sys, tempfile
+import torch
+import ray_tpu_torch
+from ray_tpu_torch import tune
+from ray_tpu_torch.air import RunConfig
+from ray_tpu_torch.tune import sample, schedulers, search, tuner
+from ray_tpu_torch.util import actor_group, joblib, multiprocessing, queue
+from ray_tpu_torch.util import collective
+from ray_tpu_torch.util.accelerators import gpu
+from ray_tpu_torch.util.collective.collective_group import base, nccl_group, store_group
+group = collective.init_collective_group(2, 0, group_name="probe", devices=["cpu", "cpu"])
+assert group.allreduce([torch.ones(2), torch.ones(2)])[1].tolist() == [2.0, 2.0]
+ray_tpu_torch.init(num_cpus=2, max_workers=2)
+def trainable(config):
+    import sys
+    tune.report({"foreign": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))})
+storage = tempfile.mkdtemp()
+grid = tune.Tuner(trainable, param_space={"x": tune.grid_search([0])},
+                  run_config=RunConfig(storage_path=storage)).fit()
+@ray_tpu_torch.remote
+def rank(r):
+    import sys
+    from ray_tpu_torch.util import collective
+    collective.init_collective_group(2, r, backend="store", group_name="probe_store")
+    collective.allreduce(torch.ones(2), group_name="probe_store")
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+store_bad = ray_tpu_torch.get([rank.remote(0), rank.remote(1)], timeout=60)
+ray_tpu_torch.shutdown()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
+print("FOREIGN", bad)
+print("TRIAL FOREIGN", grid[0].metrics["foreign"])
+print("STORE RANK FOREIGN", store_bad)
+"""
+
+
+def test_slice9_modules_import_neither_jax_nor_ray_tpu():
+    """Tune (a trial included), util.collective (a store group's ranks
+    included), the queue, Pool, ActorGroup, joblib and the GPU helpers."""
+    out = subprocess.run([sys.executable, "-c", _SLICE9_PROBE], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
+    assert "\nTRIAL FOREIGN []" in out.stdout, out.stdout
+    assert "\nSTORE RANK FOREIGN [[], []]" in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

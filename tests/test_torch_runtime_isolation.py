@@ -14,6 +14,7 @@ Also: no module of the port names a ``ray_tpu.`` module or reads a
 the reference differ from it by the renames only. Compiled DAGs of both
 packages run at once, each on its own channels (its own segment prefix,
 its own C++ ring module), and Data of both packages runs side by side.
+Tune and the rest of ``util/`` are copied the same way.
 
 Clusters of both packages on one machine: two CLI heads share one
 ``HOME`` and each keeps its address and pid under its own state dir; a
@@ -310,6 +311,34 @@ def _code(src):
 
 @pytest.mark.parametrize("name", SLICE8_SAME_CODE)
 def test_copied_slice8_module_has_the_reference_code_with_the_renames(name):
+    with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
+        want = _code(_cluster_renames(f.read()))
+    with open(os.path.join(PORT_DIR, name)) as f:
+        assert _code(f.read()) == want
+
+
+# Tune and the rest of util: copied with the same renames, the first list
+# byte for byte, the second but for its docstring (ROADMAP.md Queue C names
+# the edits of tune/tuner.py, util/collective's types, collective and
+# store group, and the nccl group in the xla group's place)
+SLICE9_VERBATIM = ["tune/__init__.py", "tune/sample.py", "tune/search.py",
+                   "tune/schedulers.py", "util/queue.py", "util/multiprocessing.py",
+                   "util/actor_group.py", "util/joblib/__init__.py",
+                   "util/collective/collective_group/__init__.py",
+                   "util/collective/collective_group/base.py"]
+SLICE9_SAME_CODE = ["util/collective/__init__.py"]
+
+
+@pytest.mark.parametrize("name", SLICE9_VERBATIM)
+def test_copied_slice9_module_differs_from_the_reference_by_the_renames_only(name):
+    with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
+        want = _cluster_renames(f.read())
+    with open(os.path.join(PORT_DIR, name)) as f:
+        assert f.read() == want
+
+
+@pytest.mark.parametrize("name", SLICE9_SAME_CODE)
+def test_copied_slice9_module_has_the_reference_code_with_the_renames(name):
     with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
         want = _code(_cluster_renames(f.read()))
     with open(os.path.join(PORT_DIR, name)) as f:

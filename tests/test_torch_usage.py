@@ -4,8 +4,9 @@
 The report of each runtime holds the libraries and tags recorded, the
 node count, and the source, which names the package that wrote it
 (``ray_tpu_torch`` on the port, where every name the runtime writes
-carries that prefix). Importing ``llm`` records "llm" on both, and
-importing ``data`` and ``workflow`` records "data" and "workflow",
+carries that prefix). Importing ``llm`` records "llm" on both,
+importing ``data`` and ``workflow`` records "data" and "workflow", and
+importing ``tune`` records "tune" (and "train", which it imports),
 checked in a fresh process for each package, since a package imported
 before ``init`` records only into the first runtime it meets.
 
@@ -73,3 +74,12 @@ def test_importing_data_and_workflow_records_their_usage(rt):
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LIBS ['data', 'workflow']" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("rt", RTS, ids=IDS)
+def test_importing_tune_records_its_usage(rt):
+    out = subprocess.run([sys.executable, "-c", PROBE.format(repo=REPO, rt=rt.__name__,
+                                                             lib="tune")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LIBS ['train', 'tune']" in out.stdout, out.stdout
