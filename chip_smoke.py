@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ray_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --mesh-nccl]
 
 Runs from the root of a checkout and needs one Hopper card, ``nvcc`` and
-nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
+nothing else (``--mesh-nccl``: four cards, and it runs only the mesh
+training paths over NCCL, one rank a card, against one device; see
+``mesh_nccl_phase``): it builds the kernels from ``ray_tpu_torch/csrc`` and then
 
 1. kernel phases: each of the seven hand-written kernels at the main
    paths' shapes, held against its plain PyTorch version (f32 from the
@@ -165,6 +167,22 @@ nothing else: it builds the kernels from ``ray_tpu_torch/csrc`` and then
    and send/recv; a "store" group of a ``num_gpus=1`` actor with CUDA
    tensors and a CPU actor: allreduce and allgather of 4 M f32 bit-equal to
    numpy's, each result on its rank's device;
+6k. mesh phase (the parallel layer): ``LLAMA_BENCH`` trained 3 steps on the
+   runtime phase's batch (bf16, remat, flash + fused CE, the trainer
+   phase's seed and optimizer), each path's losses held to the same steps
+   on one device in this process: ``mesh_world1``, a one-GPU
+   ``TorchTrainer`` worker whose loop builds ``make_mesh()`` from
+   ``TorchConfig.mesh_shape`` over its NCCL world of one (full depth;
+   bit-equality printed, within ``TRAIN_LOSS_RTOL``); ``mesh_shared``, 4
+   gloo ranks sharing the card at (fsdp 2, model 2), and ``mesh_ring``, 2
+   gloo ranks at seq 2 with ``attention_impl="ring"`` (both at
+   ``MESH_DEPTH`` layers, within ``MESH_LOSS_RTOL``; printed: launches per
+   rank, staged bytes and where each step's host time went). Then, on 2
+   ranks against one rank: Ulysses and the ring at LLAMA_BENCH's heads
+   (``mesh_ulysses``, ``mesh_ring_op``), 1F1B and GPipe over 2 stages of 8
+   blocks (gradients against the sequential microbatches; 1F1B's peak
+   memory below GPipe's, summed over the ranks), and the expert-parallel
+   MoE FFN at Mixtral's expert widths (``mesh_expert``);
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -207,7 +225,14 @@ batch, and ``llm_processor`` none. The ``trainer`` path is counted in the gang's
 worker, zeroed there before each step and read after it: each step must
 launch all seven kernels as a training step does; so must each step of
 ``tune_trial`` (counted in the trial's actor) and of ``tune_trainer``
-(in the wrapped trainer's worker; 2 layers). ``--profile`` adds a
+(in the wrapped trainer's worker; 2 layers). The mesh paths are counted in
+their ranks and summed over them: each step of ``mesh_world1`` as a
+training step; of ``mesh_shared`` per rank as a training step on its heads
+and rows (the CE over its 4 rows); of ``mesh_ring`` rank r runs the flash
+forward 2 (r + 1) times a layer and each backward kernel r + 1 times (its
+hop plan), the CE kernels on its half of the sequence; ``mesh_ulysses``
+one of each attention kernel a rank, ``mesh_ring_op`` r + 1 each,
+``mesh_expert`` none. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
 (whose printed times then carry the profiler's cost), of one training
 step, with the optimizer update's share of it, of one MoE training step,
@@ -2351,11 +2376,608 @@ def collective_phase(cfg, dev, smi: str) -> None:
     tag("store allreduce and allgather across a GPU actor (CUDA tensors) and a CPU actor: "
         "bit-equal to numpy on both ranks")
 
+# ---------------------------------------------------------------------
+# mesh phase: the parallel layer over ranks
+# ---------------------------------------------------------------------
+
+MESH_STEPS = 3
+# The depth of mesh_shared and mesh_ring (LLAMA_BENCH's width): cut from 16
+# layers to keep the script inside half its time limit.
+MESH_DEPTH = 8
+# The steps' losses of the sharded runs against the one-device step in
+# this process, relative. bf16 activations and parameters: a sharded run
+# sums the model halves of each projection and the fsdp halves of each
+# gradient as two bf16 partials where one device sums once (2^-8 relative
+# each, averaged over 65 536 tokens in the loss).
+MESH_LOSS_RTOL = 5e-3
+# Ulysses and the ring against one rank's flash_attention on the same bf16
+# inputs: o and the gradients per row relative to the row's norm (the ring
+# merges its hops in f32 and rounds once; Ulysses runs the same kernel on
+# the same heads).
+MESH_ATTN_ROW_RTOL = 1e-2
+# The 1F1B pipeline's stage gradients against the same microbatches run
+# sequentially on one rank (same kernels, same order; f32 sums of the
+# microbatches on both sides), per tensor ||g - g_ref|| / ||g_ref||.
+MESH_PIPE_GRAD_RTOL = 1e-2
+# The expert-parallel MoE FFN (f32, TF32 off) against one rank's: the two
+# ranks' combines summed in another order.
+MESH_EXPERT_RTOL = 1e-5
+MESH_RANK_TIMEOUT_S = 600
+
+
+def _mesh_rank_main(rank, world, workdir, fn):
+    """One rank of a mesh phase: a group on a FileStore in ``workdir``
+    (gloo, every rank on card 0; or ``payload["backend"]`` "nccl", rank r
+    on card r), ``fn(rank, world, payload)`` run and its result saved for
+    the process that started the ranks."""
+    import datetime
+
+    import torch.distributed as dist
+
+    payload = torch.load(os.path.join(workdir, "payload.pt"), weights_only=False)
+    backend = payload.get("backend", "gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(workdir, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))
+    try:
+        out = fn(rank, world, payload)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def run_ranks(fn, world: int, payload: dict, timeout_s: float = MESH_RANK_TIMEOUT_S) -> list:
+    """``fn`` on ``world`` spawned ranks (sharing card 0 over gloo, or one
+    card each over NCCL, as ``_mesh_rank_main`` says); their results in rank
+    order. A rank that fails or outlasts ``timeout_s`` fails the phase, and
+    no rank is left running."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        torch.save(payload, os.path.join(workdir, "payload.pt"))
+        ctx = mp.start_processes(_mesh_rank_main, args=(world, workdir, fn), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.time() + timeout_s
+        try:
+            while not ctx.join(timeout=5):
+                fail_unless(time.time() < deadline,
+                            f"mesh: {fn.__name__} ranks still running after {timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _kernel_wrappers(names):
+    from ray_tpu_torch.ops import cuda_attention, cuda_ce
+
+    return {n: getattr(cuda_attention, n, None) or getattr(cuda_ce, n) for n in names}
+
+
+def mesh_train_steps(mesh, cfg, tokens, steps, kernel_names):
+    """``steps`` sharded train steps of ``cfg`` (LLAMA_BENCH, bf16) over
+    ``mesh`` from the trainer phase's seeded parameters and optimizer, each
+    step counted: launches (zeroed just before it), staged bytes and the
+    transport's host seconds (waiting for the card before a copy out, the
+    copies, the collectives' calls), host ms ending in a synchronize; and
+    the peak memory."""
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import comm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    opt = parallel.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, sh = parallel.create_train_state(mesh, gen, lambda g: llama.init_params(g, cfg, dev),
+                                            opt, llama.param_specs(cfg))
+    step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt, mesh, sh)
+    batch = {"tokens": tokens.to(dev)}
+    wrappers = _kernel_wrappers(kernel_names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(steps):
+        for w in wrappers.values():
+            w.launches = 0
+        comm.staging.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rows.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": {n: w.launches for n, w in wrappers.items()},
+                     "staged": comm.staging.bytes, "wait_s": comm.staging.wait_s,
+                     "copy_s": comm.staging.copy_s, "comm_s": comm.staging.comm_s})
+    return {"rows": rows, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "wq": tuple(state.params["blocks"]["wq"].shape)}
+
+
+def _breakdown(row) -> str:
+    """Where a sharded step's host time went, from its transport counters."""
+    rest = row["ms"] / 1e3 - row["wait_s"] - row["copy_s"] - row["comm_s"]
+    return (f"gloo calls {row['comm_s']:.3f} s, host copies {row['copy_s']:.3f} s, waiting for "
+            f"the card before a copy {row['wait_s']:.3f} s, the rest {rest:.3f} s")
+
+
+def mesh_world1_loop(config):
+    """The ``mesh_world1`` train loop, in a one-GPU TorchTrainer worker:
+    ``make_mesh()`` over the gang's NCCL group of one (shaped by
+    ``TorchConfig.mesh_shape``), then the sharded steps, each reported."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import parallel, train
+
+    mesh = parallel.make_mesh()
+    out = mesh_train_steps(mesh, config["cfg"], config["tokens"], config["steps"],
+                           config["kernel_names"])
+    sizes = {a: parallel.mesh_axis_size(mesh, a) for a in parallel.AXIS_ORDER}
+    for i, row in enumerate(out["rows"]):
+        train.report({**row, "sizes": sizes, "backend": dist.get_backend(),
+                      "peak_gib": out["peak_gib"], "step": i + 1})
+
+
+def mesh_train_rank(rank, world, p):
+    from ray_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(**p["mesh"])
+    return mesh_train_steps(mesh, p["cfg"], p["tokens"], p["steps"], p["kernel_names"])
+
+
+def _attn_inputs(p, dev):
+    gen = torch.Generator(device=dev).manual_seed(p["seed"])
+    B, T, H, KVH, hd = p["shape"]
+    return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+            for shape in ((B, T, H, hd), (B, T, KVH, hd), (B, T, KVH, hd), (B, T, H, hd))]
+
+
+def mesh_attention_rank(rank, world, p):
+    """Ulysses and the ring, each on this rank's sequence block of seeded
+    inputs, against one rank's flash_attention on the whole: the block's o
+    and gradients' row-relative errors, each op's launches (zeroed just
+    before it), staged bytes and forward + backward ms."""
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.ops import flash_attention, ring_attention, ulysses_attention
+    from ray_tpu_torch.parallel import comm
+
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh(seq=world)
+    q, k, v, g = _attn_inputs(p, dev)
+    wrappers = _kernel_wrappers(p["kernel_names"])
+    whole = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ro = flash_attention(*whole, causal=True)
+    refs = [ro, *torch.autograd.grad(ro, whole, g)]
+    blocks = [comm.local_part(t, mesh, ("seq",), 1).contiguous().requires_grad_(True)
+              for t in (q, k, v)]
+    gb = comm.local_part(g, mesh, ("seq",), 1).contiguous()
+    out = {}
+    for op, fn in (("ulysses", ulysses_attention), ("ring_op", ring_attention)):
+        for w in wrappers.values():
+            w.launches = 0
+        comm.staging.reset()
+        o = fn(*blocks, mesh=mesh, causal=True)
+        grads = torch.autograd.grad(o, blocks, gb)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        staged = comm.staging.bytes
+        ms = time_ms(lambda: torch.autograd.grad(fn(*blocks, mesh=mesh, causal=True), blocks,
+                                                 gb), 3, warmup=1)
+        errs = {n: row_rel_err(a, comm.local_part(r, mesh, ("seq",), 1), 0 if n == "o" else 1e-3)
+                for n, a, r in zip(("o", "dq", "dk", "dv"), (o, *grads), refs)}
+        out[op] = {"errs": errs, "launches": launches, "staged": staged, "ms": ms}
+    return out
+
+
+def _pipe_stage(cfg):
+    """A pipeline stage of ``cfg`` blocks (flash attention), x -> x."""
+    from ray_tpu_torch.models import llama
+
+    def stage(params, x):
+        cos, sin = llama.rope_table(cfg, x.shape[1], device=x.device)
+        for layer in llama._layers(params):
+            x = llama.block_fn(cfg, x, layer, cos, sin)
+        return x
+
+    return stage
+
+
+def mesh_pipeline_rank(rank, world, p):
+    """1F1B and GPipe over ``world`` stages of ``cfg.n_layers // world``
+    LLAMA_BENCH blocks each (seeded bf16 weights, flash attention), the
+    loss the mean square of the last stage's output against seeded
+    targets: this stage's gradients against the same microbatches run
+    through every stage on this rank alone (f32 sums of the microbatches,
+    as the pipeline's), and each schedule's peak memory above what it found
+    (after a first run of each, whose first-use allocations it excludes)."""
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.models import llama
+
+    dev = torch.device("cuda", 0)
+    cfg = p["cfg"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks = llama.init_params(gen, cfg, dev)["blocks"]
+    per = cfg.n_layers // world
+    stacked = {k: v.reshape(world, per, *v.shape[1:]) for k, v in blocks.items()}
+    mesh = parallel.pipe_mesh()
+    local = {k: v[rank:rank + 1].clone() for k, v in stacked.items()}
+    B, S, mb = p["batch"]
+    x = torch.randn(B, S, cfg.dim, generator=gen, device=dev).to(cfg.dtype)
+    t = torch.randn(B, S, cfg.dim, generator=gen, device=dev).to(cfg.dtype)
+    stage = _pipe_stage(cfg)
+
+    def loss_fn(y, tt):
+        return torch.mean((y.float() - tt.float()) ** 2)
+
+    wrappers = _kernel_wrappers(p["kernel_names"])
+    runs = {schedule: parallel.pipeline_train(stage, local, mesh, loss_fn=loss_fn,
+                                              microbatch_size=mb, schedule=schedule)
+            for schedule in ("1f1b", "gpipe")}
+    for run in runs.values():  # first-use allocations (cuBLAS) out of the measured peaks
+        run(x, t)
+    out = {}
+    for schedule, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        loss, grads = run(x, t)
+        torch.cuda.synchronize()
+        out[schedule] = {"loss": loss.item(), "ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                         "stats": dict(run.stats),
+                         "launches": {n: w.launches for n, w in wrappers.items()},
+                         "grads": {k: v[0] for k, v in grads.items()}}
+    # the reference: every microbatch through every stage on this rank
+    mine = {k: v[rank].detach().requires_grad_(True) for k, v in stacked.items()}
+    allp = [{k: v[s] for k, v in stacked.items()} for s in range(world)]
+    allp[rank] = mine
+    acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in mine.items()}
+    total = 0.0
+    for m in range(B // mb):
+        h = x[m * mb:(m + 1) * mb]
+        for s in range(world):
+            h = stage(allp[s], h)
+        loss = loss_fn(h, t[m * mb:(m + 1) * mb])
+        total += loss.item()
+        for (k, a), gr in zip(acc.items(), torch.autograd.grad(loss, list(mine.values()))):
+            a += gr
+    M = B // mb
+    errs = {}
+    for k, a in acc.items():
+        ref = (a / M).to(cfg.dtype).float()
+        for schedule in ("1f1b", "gpipe"):
+            got = out[schedule]["grads"][k].float()
+            errs[f"{schedule}/{k}"] = ((got - ref).norm() / ref.norm()).item()
+    for schedule in out:
+        del out[schedule]["grads"]
+    return {"runs": out, "errs": errs, "ref_loss": total / M}
+
+
+def mesh_expert_rank(rank, world, p):
+    """moe_ffn with the experts split over ``expert`` (world ranks), f32 at
+    Mixtral's expert widths, against one rank's moe_ffn on all experts:
+    outputs (row-relative) and aux loss."""
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.models import shard_params
+    from ray_tpu_torch.ops import moe as moe_ops
+    from ray_tpu_torch.parallel import P
+
+    dev = torch.device("cuda", 0)
+    mc = p["moe"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = moe_ops.init_moe_params(gen, mc, dtype=torch.float32, device=dev)
+    B, S = p["tokens"]
+    x = torch.randn(B, S, mc.d_model, generator=gen, device=dev)
+    mesh = parallel.make_mesh(expert=world)
+    specs = {"router": P(None, None), "w_gate": P("expert", None, None),
+             "w_up": P("expert", None, None), "w_down": P("expert", None, None)}
+    local = shard_params(full, mesh, specs)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = moe_ops.moe_ffn(local, x, mc, mesh=mesh, token_axes=((), ()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref, ref_aux = moe_ops.moe_ffn(full, x, mc)
+    return {"err": row_rel_err(out, ref), "aux": aux.item(), "ref_aux": ref_aux.item(),
+            "ms": ms, "experts": tuple(local["w_gate"].shape)}
+
+
+def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
+    """The mesh phase: LLAMA_BENCH trained over meshes of ranks, and the
+    sequence, pipeline and expert parallel ops on two ranks sharing the
+    card, each held against one rank. Returns the launches by path, summed
+    over each path's ranks."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import moe as moe_ops
+
+    def tag(line):
+        print(f"mesh [{smi}]: {line}")
+
+    t_phase = time.perf_counter()
+    counted = {}
+    tokens, _ = bench_inputs(cfg)
+    tcfg = dataclasses.replace(cfg, remat=True, attention_impl="flash", ce_impl="fused")
+    per_step = train_step_counts(cfg, tokens)
+
+    def one_device(c):
+        """The one-device steps a training path is held against."""
+        state, step = trainer_setup(c, dev)
+        batch = {"tokens": tokens.to(dev)}
+        losses = []
+        for _ in range(MESH_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        del state, step, batch, m
+        torch.cuda.empty_cache()
+        tag(f"one-device losses at {c.n_layers} layers (in-process make_train_step): "
+            f"{' '.join(repr(v) for v in losses)}")
+        return losses
+
+    here = one_device(cfg)
+
+    # ---- mesh_world1: a TorchTrainer worker's NCCL world of one
+    class Collect:
+        def __init__(self):
+            self.rows = []
+
+        def on_result(self, metrics):
+            self.rows.append(metrics)
+
+    collect = Collect()
+    import tempfile
+
+    rt.init(num_cpus=2)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_world1_") as root:
+            t_fit = time.time()
+            result = train.TorchTrainer(
+                mesh_world1_loop,
+                train_loop_config={"cfg": tcfg, "tokens": tokens, "steps": MESH_STEPS,
+                                   "kernel_names": list(kernel_names)},
+                torch_config=train.TorchConfig(mesh_shape={"fsdp": 1}),
+                scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=train.RunConfig(name="mesh_world1", storage_path=root,
+                                           callbacks=[collect])).fit()
+            fit_s = time.time() - t_fit
+    finally:
+        rt.shutdown()
+    fail_unless(result.error is None, f"mesh_world1: fit() ended in error: {result.error}")
+    rows = collect.rows
+    fail_unless(len(rows) == MESH_STEPS, f"mesh_world1: {len(rows)} steps reported")
+    fail_unless(rows[0]["backend"] == "nccl" and all(v == 1 for v in rows[0]["sizes"].values()),
+                f"mesh_world1: backend {rows[0]['backend']}, mesh {rows[0]['sizes']}")
+    losses = [r["loss"] for r in rows]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, here)]
+    for r in rows:
+        fail_unless(r["launches"] == per_step,
+                    f"mesh_world1: step {r['step']} launched {r['launches']}, want {per_step}")
+    fail_unless(max(errs) <= TRAIN_LOSS_RTOL, f"mesh_world1: loss relative err {max(errs)}")
+    counted["mesh_world1"] = {n: sum(r["launches"][n] for r in rows) for n in kernel_names}
+    tag(f"mesh_world1: TorchTrainer, one use_gpu worker, backend {rows[0]['backend']}, mesh "
+        f"{rows[0]['sizes']}; losses {' '.join(repr(v) for v in losses)}; bit-equal to the "
+        f"one-device step {losses == here} (max relative err {max(errs):.3e}); step ms "
+        f"{' '.join(f'{r['ms']:.2f}' for r in rows)}; peak {rows[0]['peak_gib']:.2f} GiB; "
+        f"launches per step {rows[0]['launches']}; fit() {fit_s:.2f} s")
+    torch.cuda.empty_cache()
+
+    # ---- mesh_shared: 4 gloo ranks sharing the card at (fsdp 2, model 2); these
+    # and the ring's run at MESH_DEPTH layers (full width): their steps are the
+    # gloo transport's, 10-12 s a step at 16 layers
+    cut = dataclasses.replace(cfg, n_layers=MESH_DEPTH)
+    here = one_device(cut)
+    tcfg = dataclasses.replace(tcfg, n_layers=MESH_DEPTH)
+    payload = {"cfg": tcfg, "tokens": tokens, "steps": MESH_STEPS,
+               "kernel_names": list(kernel_names), "mesh": {"fsdp": 2, "model": 2}}
+    t0 = time.time()
+    outs = run_ranks(mesh_train_rank, 4, payload)
+    wall = time.time() - t0
+    # each rank: its heads (model 2) of every layer, its rows (fsdp 2) in the CE
+    want = train_step_counts(cut, tokens[:tokens.shape[0] // 2])
+    for r, o in enumerate(outs):
+        fail_unless([x["loss"] for x in o["rows"]] == [x["loss"] for x in outs[0]["rows"]],
+                    f"mesh_shared: rank {r}'s losses differ from rank 0's")
+        for x in o["rows"]:
+            fail_unless(x["launches"] == want,
+                        f"mesh_shared: rank {r} launched {x['launches']}, want {want}")
+        tag(f"mesh_shared rank {r}: wq shard {o['wq']}, launches per step "
+            f"{o['rows'][-1]['launches']}, staged {o['rows'][-1]['staged'] / 2**30:.3f} GiB per "
+            f"step, step ms {' '.join(f'{x['ms']:.1f}' for x in o['rows'])}, peak "
+            f"{o['peak_gib']:.2f} GiB; last step: {_breakdown(o['rows'][-1])}")
+    losses = [x["loss"] for x in outs[0]["rows"]]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, here)]
+    fail_unless(max(errs) <= MESH_LOSS_RTOL,
+                f"mesh_shared: loss relative err {max(errs)} > {MESH_LOSS_RTOL}")
+    counted["mesh_shared"] = {n: sum(x["launches"][n] for o in outs for x in o["rows"])
+                              for n in kernel_names}
+    tag(f"mesh_shared: (fsdp 2, model 2), {cut.n_layers} layers, 4 gloo ranks on one card; losses "
+        f"{' '.join(repr(v) for v in losses)} against one device's, max relative err "
+        f"{max(errs):.3e}; {wall:.1f} s with the ranks' start")
+    torch.cuda.empty_cache()
+
+    # ---- mesh_ring: 2 gloo ranks at seq 2, ring attention
+    rcfg = dataclasses.replace(tcfg, attention_impl="ring")
+    payload = {"cfg": rcfg, "tokens": tokens, "steps": MESH_STEPS,
+               "kernel_names": list(kernel_names), "mesh": {"seq": 2}}
+    t0 = time.time()
+    outs = run_ranks(mesh_train_rank, 2, payload)
+    wall = time.time() - t0
+    L = cut.n_layers
+    rows_local = tokens.shape[0] * (tokens.shape[1] - 1) // 2
+    ce_chunks = -(-rows_local // (256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128))
+    for r, o in enumerate(outs):
+        hops = r + 1  # rank r attends the diagonal block and r past ones
+        want = {"flash_attention_fwd": 2 * L * hops, "flash_attention_bwd_dkv": L * hops,
+                "flash_attention_bwd_dq": L * hops, "fused_ce_fwd": 1,
+                "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
+                "fused_ce_bwd_dw": ce_chunks}
+        for x in o["rows"]:
+            fail_unless(x["launches"] == want,
+                        f"mesh_ring: rank {r} launched {x['launches']}, the hop plan {want}")
+        tag(f"mesh_ring rank {r}: launches per step {o['rows'][-1]['launches']} (hop plan: "
+            f"{hops} block(s) a layer), staged {o['rows'][-1]['staged'] / 2**30:.3f} GiB per "
+            f"step, step ms {' '.join(f'{x['ms']:.1f}' for x in o['rows'])}, peak "
+            f"{o['peak_gib']:.2f} GiB; last step: {_breakdown(o['rows'][-1])}")
+    losses = [x["loss"] for x in outs[0]["rows"]]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, here)]
+    fail_unless(max(errs) <= MESH_LOSS_RTOL,
+                f"mesh_ring: loss relative err {max(errs)} > {MESH_LOSS_RTOL}")
+    counted["mesh_ring"] = {n: sum(x["launches"][n] for o in outs for x in o["rows"])
+                            for n in kernel_names}
+    tag(f"mesh_ring: seq 2, {cut.n_layers} layers, 2 gloo ranks, 2049-token rows; losses "
+        f"{' '.join(repr(v) for v in losses)} against one device's flash, max relative err "
+        f"{max(errs):.3e}; {wall:.1f} s with the ranks' start")
+    torch.cuda.empty_cache()
+
+    # ---- mesh_ulysses (and the ring op), mesh_pipeline, mesh_expert: op level
+    payload = {"shape": (1, 4096, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), "seed": 3,
+               "kernel_names": list(kernel_names)}
+    outs = run_ranks(mesh_attention_rank, 2, payload)
+    attn = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    for op in ("ulysses", "ring_op"):
+        for r, o in enumerate(x[op] for x in outs):
+            for n, e in o["errs"].items():
+                fail_unless(math.isfinite(e) and e <= MESH_ATTN_ROW_RTOL,
+                            f"mesh_{op}: rank {r} {n} row-relative err {e} > "
+                            f"{MESH_ATTN_ROW_RTOL}")
+            hops = 1 if op == "ulysses" else r + 1  # the ring's plan: r + 1 blocks
+            fail_unless(all(o["launches"][n] == hops for n in attn),
+                        f"mesh_{op}: rank {r} launched {o['launches']}, want {hops} of each "
+                        f"attention kernel")
+            tag(f"mesh_{op} rank {r} (B 1, T 4096, H {cfg.n_heads}, KVH {cfg.n_kv_heads}, hd "
+                f"{cfg.head_dim}, causal): row-relative err against one rank's flash_attention "
+                + ", ".join(f"{n} {e:.3e}" for n, e in o["errs"].items())
+                + f"; launches {o['launches']}; staged {o['staged'] / 2**20:.1f} MiB; forward "
+                f"+ backward {o['ms']:.2f} ms")
+        counted[f"mesh_{op}"] = {n: sum(x[op]["launches"][n] for x in outs)
+                                 for n in kernel_names}
+
+    pcfg = dataclasses.replace(cfg, attention_impl="flash", remat=False)
+    payload = {"cfg": pcfg, "batch": (16, 2048, 1), "kernel_names": list(kernel_names)}
+    outs = run_ranks(mesh_pipeline_rank, 2, payload)
+    for r, o in enumerate(outs):
+        for n, e in o["errs"].items():
+            fail_unless(math.isfinite(e) and e <= MESH_PIPE_GRAD_RTOL,
+                        f"mesh_pipeline: rank {r} {n} gradient relative err {e}")
+        one, gp = o["runs"]["1f1b"], o["runs"]["gpipe"]
+        fail_unless(one["stats"]["peak_stash"] <= min(one["stats"]["microbatches"], 3),
+                    f"mesh_pipeline: 1F1B stashed {one['stats']['peak_stash']}")
+        tag(f"mesh_pipeline rank {r} (2 stages of {pcfg.n_layers // 2} LLAMA_BENCH blocks, 16 "
+            f"microbatches of 1 x 2048): gradient relative err against sequential "
+            + ", ".join(f"{n} {e:.3e}" for n, e in o["errs"].items() if n.startswith("1f1b"))
+            + f"; loss 1F1B {one['loss']!r} GPipe {gp['loss']!r} sequential {o['ref_loss']!r}; "
+            f"peak above the weights 1F1B {one['peak_gib']:.3f} GiB (stash "
+            f"{one['stats']['peak_stash']}) vs GPipe {gp['peak_gib']:.3f} GiB (stash "
+            f"{gp['stats']['peak_stash']}); ms 1F1B {one['ms']:.1f} GPipe {gp['ms']:.1f}; "
+            f"launches 1F1B {one['launches']}")
+    # stage 0 stashes views of its input; the later stages' stashes are memory
+    peaks = {s: sum(o["runs"][s]["peak_gib"] for o in outs) for s in ("1f1b", "gpipe")}
+    fail_unless(peaks["1f1b"] < peaks["gpipe"],
+                f"mesh_pipeline: 1F1B peak {peaks['1f1b']} GiB not below GPipe's {peaks['gpipe']}")
+    counted["mesh_pipeline"] = {n: sum(o["runs"][s]["launches"][n] for o in outs
+                                       for s in ("1f1b", "gpipe")) for n in kernel_names}
+
+    mix = moe_llama_widths()
+    payload = {"moe": moe_ops.MoEConfig(d_model=mix.dim, d_ff=mix.ffn_dim,
+                                        n_experts=mix.n_experts, k=mix.experts_per_token,
+                                        capacity_factor=mix.capacity_factor),
+               "tokens": (2, 2048)}
+    outs = run_ranks(mesh_expert_rank, 2, payload)
+    for r, o in enumerate(outs):
+        fail_unless(o["err"] <= MESH_EXPERT_RTOL and o["aux"] == o["ref_aux"],
+                    f"mesh_expert: rank {r} row-relative err {o['err']}, aux {o['aux']} vs "
+                    f"{o['ref_aux']}")
+        tag(f"mesh_expert rank {r} (Mixtral experts D {mix.dim} F {mix.ffn_dim}, E "
+            f"{mix.n_experts} top-{mix.experts_per_token}, 2 x 2048 tokens, f32): holds experts "
+            f"{o['experts']}; row-relative err against one rank's moe_ffn {o['err']:.3e}; aux "
+            f"equal; {o['ms']:.2f} ms")
+    counted["mesh_expert"] = {n: 0 for n in kernel_names}
+    tag(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return counted
+
+
+def moe_llama_widths():
+    from ray_tpu_torch.models import moe_llama
+
+    return moe_llama.MIXTRAL_8X7B
+
+
+def mesh_nccl_phase(cfg, dev, smi: str, kernel_names) -> None:
+    """``--mesh-nccl`` (four cards): LLAMA_BENCH at full width and depth over
+    an NCCL group of one rank a card, at (fsdp 2, model 2) and at (seq 2,
+    model 2) with ring attention, each 3 steps held to the one-device steps
+    on card 0, as ``mesh_shared`` and ``mesh_ring`` are on one card."""
+    def tag(line):
+        print(f"mesh-nccl [{smi}]: {line}")
+
+    tokens, _ = bench_inputs(cfg)
+    tcfg = dataclasses.replace(cfg, remat=True, attention_impl="flash", ce_impl="fused")
+    state, step = trainer_setup(cfg, dev)
+    batch = {"tokens": tokens.to(dev)}
+    here = []
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch)
+        here.append(m["loss"].item())
+    del state, step, batch, m
+    torch.cuda.empty_cache()
+    tag(f"one-device losses on card 0: {' '.join(repr(v) for v in here)}")
+    rows = tokens.shape[0] * (tokens.shape[1] - 1)
+    chunks = -(-rows // 2 // (256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128))
+    L = cfg.n_layers
+    for name, shape, c in (("fsdp 2, model 2", {"fsdp": 2, "model": 2}, tcfg),
+                           ("seq 2, model 2, ring", {"seq": 2, "model": 2},
+                            dataclasses.replace(tcfg, attention_impl="ring"))):
+        payload = {"cfg": c, "tokens": tokens, "steps": MESH_STEPS, "backend": "nccl",
+                   "kernel_names": list(kernel_names), "mesh": shape}
+        t0 = time.time()
+        outs = run_ranks(mesh_train_rank, 4, payload, timeout_s=240)
+        wall = time.time() - t0
+        for r, o in enumerate(outs):
+            # rank = seq index * 2 + model index on the ring's mesh: r // 2 past blocks
+            hops = r // 2 + 1 if "seq" in shape else 1
+            want = {"flash_attention_fwd": 2 * L * hops, "flash_attention_bwd_dkv": L * hops,
+                    "flash_attention_bwd_dq": L * hops, "fused_ce_fwd": 1,
+                    "fused_ce_bwd_dlog": chunks, "fused_ce_bwd_dx": chunks,
+                    "fused_ce_bwd_dw": chunks}
+            fail_unless([x["loss"] for x in o["rows"]] == [x["loss"] for x in outs[0]["rows"]],
+                        f"mesh-nccl {name}: rank {r}'s losses differ from rank 0's")
+            for x in o["rows"]:
+                fail_unless(x["launches"] == want,
+                            f"mesh-nccl {name}: rank {r} launched {x['launches']}, want {want}")
+            tag(f"{name} rank {r} (card {r}): launches per step {o['rows'][-1]['launches']}, "
+                f"staged {o['rows'][-1]['staged']} bytes, step ms "
+                f"{' '.join(f'{x['ms']:.2f}' for x in o['rows'])}, peak {o['peak_gib']:.2f} GiB")
+        losses = [x["loss"] for x in outs[0]["rows"]]
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, here)]
+        fail_unless(max(errs) <= MESH_LOSS_RTOL,
+                    f"mesh-nccl {name}: loss relative err {max(errs)} > {MESH_LOSS_RTOL}")
+        tag(f"{name}: 4 NCCL ranks, one a card, {L} layers; losses "
+            f"{' '.join(repr(v) for v in losses)} against one device's, max relative err "
+            f"{max(errs):.3e}; {wall:.1f} s with the ranks' start")
+
+
 def main(argv) -> int:
     t_main = time.perf_counter()
     profile = argv == ["--profile"]
-    if argv and not profile:
-        print(f"usage: {sys.argv[0]} [--profile]", file=sys.stderr)
+    nccl = argv == ["--mesh-nccl"]
+    if argv and not (profile or nccl):
+        print(f"usage: {sys.argv[0]} [--profile | --mesh-nccl]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2392,6 +3014,21 @@ def main(argv) -> int:
             kname = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else (m.group(1) if m else "?")
         elif "registers" in line or "spill" in line or "Performance" in line:
             print(f"  ptxas: {kname}: {line.strip()}")
+
+    if nccl:  # the mesh training paths over NCCL, one rank a card, and nothing else
+        n_cards = torch.cuda.device_count()
+        fail_unless(n_cards >= 4, f"--mesh-nccl needs 4 cards, found {n_cards}")
+        print("cards: " + " | ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()))
+        mesh_nccl_phase(dataclasses.replace(llama.LLAMA_BENCH, param_dtype=torch.bfloat16), dev,
+                        smi, ["flash_attention_fwd", "flash_attention_bwd_dkv",
+                              "flash_attention_bwd_dq", "fused_ce_fwd", "fused_ce_bwd_dlog",
+                              "fused_ce_bwd_dx", "fused_ce_bwd_dw"])
+        print(f"wall [{smi}]: {time.perf_counter() - t_main:.1f} s, the kernels' build included")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": n_cards}}))
+        return 0
 
     fa = cuda_attention.flash_attention_fwd
     ce = cuda_ce.fused_ce_fwd
@@ -2870,6 +3507,13 @@ def main(argv) -> int:
 
     # ---------------- collective phase ----------------
     collective_phase(cfg, dev, smi)
+
+    # ---------------- mesh phase (main paths) ----------------
+    # each rank's process has its own CUDA context; counted in each rank
+    for path, counts in mesh_phase(cfg, dev, smi, list(kernels)).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
 
     # ---------------- training check ----------------
     train_cfg = dataclasses.replace(cfg, remat=True)

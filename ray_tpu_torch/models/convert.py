@@ -2,7 +2,8 @@
 
 ``params_from_numpy`` turns a JAX parameter tree, given as numpy arrays
 (``jax.tree.map(np.asarray, params)``), into the port's tensors under the
-same key names. ``load_params_npz`` reads the flat ``/``-path ``.npz``
+same key names; ``shard_params`` cuts such a tree into one rank's shards
+of a mesh and ``gather_params`` puts shards back together. ``load_params_npz`` reads the flat ``/``-path ``.npz``
 format of ``ray_tpu/llm/config.py`` ``save_params_npz``, through the
 port's own copy of that format's ``_unflatten``.
 """
@@ -57,3 +58,50 @@ def _listify(node):
     if node and all(k.isdigit() for k in node):
         return [_listify(node[k]) for k in sorted(node, key=int)]
     return {k: _listify(v) for k, v in node.items()}
+
+
+def _map_with_specs(fn, tree: Any, specs: Any) -> Any:
+    from ..parallel.mesh import P
+
+    if isinstance(specs, P):
+        return fn(tree, specs)
+    if isinstance(specs, dict):
+        return {k: _map_with_specs(fn, tree[k], specs[k]) for k in specs}
+    return type(tree)(_map_with_specs(fn, t, s) for t, s in zip(tree, specs))
+
+
+def shard_params(params: Any, mesh, specs: Any, dtype: Optional[torch.dtype] = None) -> Any:
+    """This rank's shards of full parameters (numpy arrays, from the JAX
+    package, or tensors): each leaf cut along every dimension its spec in
+    ``specs`` names, as a contiguous tensor of its own on the mesh's device
+    (in its own dtype or ``dtype``). A dimension that its axes do not
+    divide raises."""
+    from ..parallel.mesh import mesh_device, shard_slice
+
+    dev = mesh_device(mesh)
+
+    def cut(leaf, spec):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+        index = tuple(shard_slice(mesh, e, t.shape[d]) for d, e in enumerate(spec))
+        return t[index].to(device=dev, dtype=dtype or t.dtype).clone().contiguous()
+
+    return _map_with_specs(cut, params, specs)
+
+
+def gather_params(state: Any, mesh, specs: Any) -> Any:
+    """Full parameters from this rank's shards: every leaf all-gathered over
+    the axes its spec names (a TrainState gives its ``params``). Every rank
+    of the mesh must call it."""
+    from ..parallel.comm import all_gather
+    from ..parallel.mesh import spec_axes
+
+    params = state.params if hasattr(state, "params") and hasattr(state, "opt_state") else state
+
+    def whole(t, spec):
+        t = t.detach()
+        for d, e in enumerate(spec):
+            for axis in reversed(spec_axes(e)):  # the minor axis first
+                t = all_gather(t, mesh, axis, d)
+        return t
+
+    return _map_with_specs(whole, params, specs)

@@ -23,6 +23,23 @@ only the block's input and recomputes the rest in the backward pass: the
 counterpart of ``jax.checkpoint(policy=nothing_saveable)`` at
 ``ray_tpu/models/llama.py:315-319``. Under ``torch.inference_mode``
 (scoring, serving) grad is off and nothing changes.
+
+Over a mesh (the ambient one of ``parallel.set_mesh``, more than one
+rank) the parameters are this rank's shards of ``param_specs`` and the
+forward is sharded as GSPMD shards the reference's:
+- each layer's fsdp shards are all-gathered inside the block (so under
+  remat one layer at a time, again in the recompute), their gradients
+  reduce-scattered;
+- heads (wq, wk, wv, wo) and the ffn hidden are split over ``model``
+  (Megatron), with an all-reduce after ``wo`` and after ``w_down``;
+- ``embed`` and ``lm_head`` are gathered whole before the lookup and
+  before the CE, so the fused CE kernels see the whole vocabulary;
+- ``loss_fn`` takes the global batch and keeps this rank's rows (dim 0
+  over data and fsdp) and, with ``attention_impl="ring"`` and a ``seq``
+  axis, its block of the sequence (rope at the block's offset; the ring
+  of ``ops/ring_attention.py`` carries K/V round); the loss is the sum
+  of the ranks' shares (``parallel/comm.py``).
+A mesh of one rank runs the one-device code unchanged.
 """
 
 from __future__ import annotations
@@ -36,6 +53,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._private.device import DeviceLike, resolve_device
+from ..parallel import comm
+from ..parallel.mesh import BATCH_AXES, P, axis_index, mesh_axis_size
 
 Params = Dict[str, Any]
 
@@ -90,6 +109,28 @@ LLAMA_BENCH = LlamaConfig(
     vocab_size=32000, dim=2048, n_layers=16, n_heads=16, n_kv_heads=8,
     ffn_dim=5632, max_seq_len=2048, rope_theta=10000.0,
 )
+
+
+def param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """The spec of each parameter (``ray_tpu/models/llama.py:92``): fsdp
+    splits each matrix's embedding-like dim, model (TP) the heads and the
+    ffn hidden (the Megatron split)."""
+    return {
+        "embed": P("model", "fsdp"),              # (V, D): vocab split on TP
+        "blocks": {
+            "attn_norm": P(None, None),            # (L, D)
+            "wq": P(None, "fsdp", "model", None),  # (L, D, H, hd)
+            "wk": P(None, "fsdp", "model", None),  # (L, D, KVH, hd)
+            "wv": P(None, "fsdp", "model", None),
+            "wo": P(None, "model", None, "fsdp"),  # (L, H, hd, D)
+            "mlp_norm": P(None, None),
+            "w_gate": P(None, "fsdp", "model"),    # (L, D, F)
+            "w_up": P(None, "fsdp", "model"),
+            "w_down": P(None, "model", "fsdp"),    # (L, F, D)
+        },
+        "final_norm": P(None),                     # (D,)
+        "lm_head": P("fsdp", "model"),             # (D, V)
+    }
 
 
 def make_dense_init(config: LlamaConfig, device: DeviceLike = None):
@@ -211,14 +252,27 @@ def _attention_xla(q, k, v, config: LlamaConfig, *, causal: bool = True):
     return out.reshape(B, S, H, hd)
 
 
-def _attention(q, k, v, config: LlamaConfig):
+def _attention_ring(q, k, v, config: LlamaConfig, mesh):
+    """Sequence-parallel attention: q, k and v hold this rank's block of
+    the sequence (and its heads, when they are split over ``model``); the
+    ring of ``ops/ring_attention.py`` carries K/V round the ``seq`` axis.
+    Falls back to flash when there is no mesh or the seq axis is 1, as
+    the reference's does."""
+    from ..ops.attention import flash_attention
+    from ..ops.ring_attention import ring_attention
+
+    if mesh is None or mesh_axis_size(mesh, "seq") == 1:
+        return flash_attention(q, k, v, causal=True)
+    return ring_attention(q, k, v, mesh=mesh, axis_name="seq", causal=True)
+
+
+def _attention(q, k, v, config: LlamaConfig, mesh=None):
     if config.attention_impl == "flash":
         from ..ops.attention import flash_attention
 
         return flash_attention(q, k, v, causal=True)
     if config.attention_impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' (sequence parallel) is not ported yet")
+        return _attention_ring(q, k, v, config, mesh)
     if config.attention_impl != "xla":
         raise ValueError(
             f"unknown attention_impl {config.attention_impl!r}; "
@@ -239,32 +293,92 @@ def _out_proj(config: LlamaConfig, attn: torch.Tensor, layer) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", attn, layer["wo"].to(config.dtype))
 
 
-def _mlp_sublayer(config: LlamaConfig, x: torch.Tensor, layer) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP + residual."""
+def _mlp_sublayer(config: LlamaConfig, x: torch.Tensor, layer, mesh=None) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP + residual; over a mesh the hidden is this
+    rank's ``model`` block and the product is summed after ``w_down``."""
     c = config
     h = rms_norm(x, layer["mlp_norm"], c.norm_eps)
     gate = h @ layer["w_gate"].to(c.dtype)
     up = h @ layer["w_up"].to(c.dtype)
-    return x + (F.silu(gate) * up) @ layer["w_down"].to(c.dtype)
+    y = (F.silu(gate) * up) @ layer["w_down"].to(c.dtype)
+    return x + (comm.psum(y, mesh, ("model",)) if mesh is not None else y)
 
 
 def attention_sublayer(config: LlamaConfig, x: torch.Tensor,
                        layer: Dict[str, torch.Tensor],
-                       cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Pre-norm GQA attention + residual."""
+                       cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Pre-norm GQA attention + residual; over a mesh the heads are this
+    rank's ``model`` block and the output projection is summed over it."""
     c = config
     h = rms_norm(x, layer["attn_norm"], c.norm_eps)
     q, k, v = _qkv(c, h, layer)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    return x + _out_proj(c, _attention(q, k, v, c), layer)
+    y = _out_proj(c, _attention(q, k, v, c, mesh), layer)
+    return x + (comm.psum(y, mesh, ("model",)) if mesh is not None else y)
 
 
 def block_fn(config: LlamaConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
-             cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One transformer block. x: (B, S, D) in config.dtype."""
-    x = attention_sublayer(config, x, layer, cos, sin)
-    return _mlp_sublayer(config, x, layer)
+             cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One transformer block. x: (B, S, D) in config.dtype. Over a mesh,
+    ``layer`` holds this rank's shards, gathered over fsdp here."""
+    if mesh is not None:
+        layer = comm.gather_layer(layer, param_specs(config)["blocks"], mesh, ("fsdp",))
+    x = attention_sublayer(config, x, layer, cos, sin, mesh)
+    return _mlp_sublayer(config, x, layer, mesh)
+
+
+def seq_split(config: LlamaConfig, mesh) -> bool:
+    """Whether the sequence is split over ``seq`` (ring attention)."""
+    return (mesh is not None and config.attention_impl == "ring"
+            and mesh_axis_size(mesh, "seq") > 1)
+
+
+def split_axes(config: LlamaConfig, mesh) -> Tuple[str, ...]:
+    """The axes a token's position is split over: the batch axes, and seq
+    under ring attention; the other axes compute the same tokens."""
+    return BATCH_AXES + (("seq",) if seq_split(config, mesh) else ())
+
+
+def local_batch(config: LlamaConfig, mesh, inputs, targets, mask):
+    """This rank's rows (dim 0 over data, fsdp) and, under ring attention,
+    its block of the sequence (dim 1 over seq)."""
+    out = [comm.local_part(t, mesh, BATCH_AXES, 0) for t in (inputs, targets, mask)]
+    if seq_split(config, mesh):
+        out = [comm.local_part(t, mesh, ("seq",), 1) for t in out]
+    return out
+
+
+def rope_for(config: LlamaConfig, seq_len: int, device, mesh):
+    """The rope table of this rank's positions: 0..S-1, or its block's
+    positions when the sequence is split over seq."""
+    if not seq_split(config, mesh):
+        return rope_table(config, seq_len, device=device)
+    start = axis_index(mesh, "seq") * seq_len
+    cos, sin = rope_table(config, start + seq_len, device=device)
+    return cos[start:], sin[start:]
+
+
+def embed_weight(params: Params, config: LlamaConfig, mesh) -> torch.Tensor:
+    """``embed`` whole (gathered over every axis it is split on)."""
+    w = params["embed"]
+    return comm.gather_param(w, param_specs(config)["embed"], mesh) if mesh is not None else w
+
+
+def head_weight(params: Params, config: LlamaConfig, mesh) -> torch.Tensor:
+    """``lm_head`` whole (gathered over fsdp and model), in config.dtype."""
+    w = params["lm_head"]
+    if mesh is not None:
+        w = comm.gather_param(w, param_specs(config)["lm_head"], mesh)
+    return w.to(config.dtype)
+
+
+def mean_loss(nll: torch.Tensor, mask, config: LlamaConfig, mesh) -> torch.Tensor:
+    """The masked mean of per-token losses; over a mesh, the sum of the
+    ranks' shares of the global mean."""
+    if mesh is None:
+        return masked_mean(nll, mask)
+    return comm.loss_total(comm.mean_share(nll, mask, mesh, split_axes(config, mesh)), mesh)
 
 
 def _layers(blocks: Dict[str, torch.Tensor]):
@@ -279,26 +393,30 @@ def _layers(blocks: Dict[str, torch.Tensor]):
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    config: LlamaConfig) -> torch.Tensor:
     """tokens (B, S) int -> final-norm hidden states (B, S, D) in
-    config.dtype (everything except the lm-head projection)."""
+    config.dtype (everything except the lm-head projection). Over a mesh,
+    ``tokens`` are this rank's rows (and sequence block under ring
+    attention), and so are the hidden states."""
     c = config
+    mesh = comm.active_mesh()
     S = tokens.shape[1]
-    x = params["embed"].to(c.dtype)[tokens.long()]
-    cos, sin = rope_table(c, S, device=x.device)
+    x = embed_weight(params, c, mesh).to(c.dtype)[tokens.long()]
+    cos, sin = rope_for(c, S, x.device, mesh)
     remat = c.remat and torch.is_grad_enabled()
     for layer in _layers(params["blocks"]):
         if remat:
-            x = checkpoint(block_fn, c, x, layer, cos, sin, use_reentrant=False)
+            x = checkpoint(block_fn, c, x, layer, cos, sin, mesh, use_reentrant=False)
         else:
-            x = block_fn(c, x, layer, cos, sin)
+            x = block_fn(c, x, layer, cos, sin, mesh)
     return rms_norm(x, params["final_norm"], c.norm_eps)
 
 
 def _lm_head(config: LlamaConfig, x: torch.Tensor, params: Params) -> torch.Tensor:
-    return (x @ params["lm_head"].to(config.dtype)).float()
+    return (x @ head_weight(params, config, comm.active_mesh())).float()
 
 
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, V) float32."""
+    """tokens (B, S) int -> logits (B, S, V) float32 (over a mesh, this
+    rank's rows and sequence block)."""
     c = config
     logits = _lm_head(c, forward_hidden(params, tokens, c), params)
     if c.logit_softcap:
@@ -326,10 +444,13 @@ def masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor
     return torch.mean(nll)
 
 
-def masked_ce(logits: torch.Tensor, targets: torch.Tensor, mask) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
-    return masked_mean(nll, mask)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor, mask) -> torch.Tensor:
+    return masked_mean(token_nll(logits, targets), mask)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -338,10 +459,15 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     {"inputs": (B,S), "targets": (B,S)} with optional "mask".
 
     ce_impl="fused" routes the lm-head projection + softmax-CE through
-    the fused kernel: f32 logits never reach device memory.
+    the fused kernel: f32 logits never reach device memory. Over a mesh
+    the batch is the global one; each rank computes its rows (the fused
+    CE's shape rule holds for them) and the result is the global loss.
     """
     c = config
+    mesh = comm.active_mesh()
     inputs, targets, mask = unpack_batch(batch)
+    if mesh is not None:
+        inputs, targets, mask = local_batch(c, mesh, inputs, targets, mask)
     B, S = inputs.shape
     if c.ce_impl == "fused":
         # an explicit "fused" request that can't be honored must FAIL,
@@ -362,12 +488,14 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
         x = forward_hidden(params, inputs, c)
         nll = fused_cross_entropy(
             x.reshape(B * S, c.dim),
-            params["lm_head"].to(c.dtype),
+            head_weight(params, c, mesh),
             targets.reshape(B * S),
         ).reshape(B, S)
-        return masked_mean(nll, mask)
+        return mean_loss(nll, mask, c, mesh)
     logits = forward(params, inputs, c)
-    return masked_ce(logits, targets, mask)
+    if mesh is None:
+        return masked_ce(logits, targets, mask)
+    return mean_loss(token_nll(logits, targets), mask, c, mesh)
 
 
 # ---------------------------------------------------------------------

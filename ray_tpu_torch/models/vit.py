@@ -15,7 +15,14 @@ Same layout and cast points as the reference:
   reference has no kernel for it, and the port adds none.
 
 ``remat`` runs each block under ``torch.utils.checkpoint`` when grad is
-enabled. Mesh specs (``param_specs``) wait for the collectives slice.
+enabled.
+
+Over a mesh (``param_specs``) the forward is sharded as the Llama
+families': each layer's fsdp shards gathered inside the block, heads and
+the MLP hidden (with ``b1``) split over ``model`` with an all-reduce after
+``wo`` and after ``w2`` (``b2`` added once, after it), the patch
+projection, position table and head gathered whole; ``loss_fn`` takes the
+global batch and keeps this rank's images (dim 0 over data and fsdp).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._private.device import DeviceLike, resolve_device
+from ..parallel import comm
+from ..parallel.mesh import BATCH_AXES, P
 from .llama import _layers
 
 Params = Dict[str, Any]
@@ -68,6 +77,36 @@ VIT_TINY = ViTConfig(
     image_size=32, patch_size=8, num_classes=10, dim=64, n_layers=2,
     n_heads=4, mlp_dim=128, remat=False, dtype=torch.float32,
 )
+
+
+def param_specs(config: ViTConfig) -> Dict[str, Any]:
+    """The mesh contract shared with the Llama families
+    (``ray_tpu/models/vit.py:66``): heads and MLP on ``model``,
+    embedding-like dims on ``fsdp``."""
+    return {
+        "patch_proj": P(None, "fsdp"),            # (patch_dim, D)
+        "patch_bias": P(None),
+        "cls": P(None),                            # (D,)
+        "pos": P(None, "fsdp"),                    # (1+N, D)
+        "blocks": {
+            "ln1_scale": P(None, None),
+            "ln1_bias": P(None, None),
+            "wq": P(None, "fsdp", "model", None),  # (L, D, H, hd)
+            "wk": P(None, "fsdp", "model", None),
+            "wv": P(None, "fsdp", "model", None),
+            "wo": P(None, "model", None, "fsdp"),
+            "ln2_scale": P(None, None),
+            "ln2_bias": P(None, None),
+            "w1": P(None, "fsdp", "model"),        # (L, D, M)
+            "b1": P(None, "model"),
+            "w2": P(None, "model", "fsdp"),        # (L, M, D)
+            "b2": P(None, None),
+        },
+        "head_norm_scale": P(None),
+        "head_norm_bias": P(None),
+        "head": P("fsdp", None),                   # (D, classes)
+        "head_bias": P(None),
+    }
 
 
 def init_params(generator: torch.Generator, config: ViTConfig,
@@ -153,9 +192,11 @@ def patchify(images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
 
 
 def block_fn(config: ViTConfig, x: torch.Tensor,
-             layer: Dict[str, torch.Tensor]) -> torch.Tensor:
+             layer: Dict[str, torch.Tensor], mesh=None) -> torch.Tensor:
     c = config
     dt = c.dtype
+    if mesh is not None:
+        layer = comm.gather_layer(layer, param_specs(c)["blocks"], mesh, ("fsdp",))
     h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], c.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, layer["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", h, layer["wk"].to(dt))
@@ -163,38 +204,57 @@ def block_fn(config: ViTConfig, x: torch.Tensor,
     logits = torch.einsum("bqhk,bthk->bhqt", q, k) / math.sqrt(c.head_dim)
     attn = torch.softmax(logits.float(), dim=-1).to(dt)
     o = torch.einsum("bhqt,bthk->bqhk", attn, v)
-    x = x + torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
+    y = torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
+    x = x + (comm.psum(y, mesh, ("model",)) if mesh is not None else y)
 
     h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], c.norm_eps)
     h = F.gelu(torch.einsum("bsd,dm->bsm", h, layer["w1"].to(dt)) + layer["b1"].to(dt),
                approximate="tanh")
-    return x + (torch.einsum("bsm,md->bsd", h, layer["w2"].to(dt)) + layer["b2"].to(dt))
+    y = torch.einsum("bsm,md->bsd", h, layer["w2"].to(dt))
+    if mesh is not None:
+        y = comm.psum(y, mesh, ("model",))
+    return x + (y + layer["b2"].to(dt))
+
+
+def _whole(params: Params, name: str, config: ViTConfig, mesh) -> torch.Tensor:
+    w = params[name]
+    return comm.gather_param(w, param_specs(config)[name], mesh) if mesh is not None else w
 
 
 def forward(params: Params, images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
-    """images (B, H, W, C) float -> class logits (B, num_classes) f32."""
+    """images (B, H, W, C) float -> class logits (B, num_classes) f32 (over
+    a mesh, this rank's images)."""
     c = config
     dt = c.dtype
+    mesh = comm.active_mesh()
     B = images.shape[0]
     patches = patchify(images.to(dt), c)
-    x = (torch.einsum("bnp,pd->bnd", patches, params["patch_proj"].to(dt))
+    x = (torch.einsum("bnp,pd->bnd", patches, _whole(params, "patch_proj", c, mesh).to(dt))
          + params["patch_bias"].to(dt))
     cls = params["cls"].to(dt).expand(B, 1, c.dim)
-    x = torch.cat([cls, x], dim=1) + params["pos"].to(dt)
+    x = torch.cat([cls, x], dim=1) + _whole(params, "pos", c, mesh).to(dt)
     remat = c.remat and torch.is_grad_enabled()
     for layer in _layers(params["blocks"]):
         if remat:
-            x = checkpoint(block_fn, c, x, layer, use_reentrant=False)
+            x = checkpoint(block_fn, c, x, layer, mesh, use_reentrant=False)
         else:
-            x = block_fn(c, x, layer)
+            x = block_fn(c, x, layer, mesh)
     x = _layer_norm(x[:, 0], params["head_norm_scale"], params["head_norm_bias"], c.norm_eps)
-    logits = (torch.einsum("bd,dk->bk", x, params["head"].to(dt))
+    logits = (torch.einsum("bd,dk->bk", x, _whole(params, "head", c, mesh).to(dt))
               + params["head_bias"].to(dt))
     return logits.float()
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], config: ViTConfig) -> torch.Tensor:
-    """Softmax CE over the classes; batch {"image": (B,H,W,C), "label": (B,)}."""
-    logits = forward(params, batch["image"], config)
+    """Softmax CE over the classes; batch {"image": (B,H,W,C), "label": (B,)}
+    (over a mesh the global batch, and the global loss)."""
+    mesh = comm.active_mesh()
+    images, labels = batch["image"], batch["label"]
+    if mesh is not None:
+        images, labels = (comm.local_part(t, mesh, BATCH_AXES, 0) for t in (images, labels))
+    logits = forward(params, images, config)
     logp = F.log_softmax(logits, dim=-1)
-    return -torch.mean(logp.gather(1, batch["label"].long()[:, None]))
+    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+    if mesh is None:
+        return torch.mean(nll)
+    return comm.loss_total(comm.mean_share(nll, None, mesh, BATCH_AXES), mesh)

@@ -142,6 +142,21 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw), dk, dv
 
 
+def _size1_strides(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with the stride of each size-1 dimension set to what a
+    contiguous layout gives it. Such a stride is never stepped along, and
+    autograd may hand over any value there (a one-row microbatch's dO came
+    with a batch stride of 1); the kernels take it as a row stride, which
+    must stay 16-byte aligned."""
+    if t.dim() != 4 or all(n > 1 for n in t.shape[:3]):
+        return t
+    strides = list(t.stride())
+    for d in (2, 1, 0):
+        if t.shape[d] == 1:
+            strides[d] = strides[d + 1] * t.shape[d + 1]
+    return t.as_strided(t.shape, strides)
+
+
 def _check_operand(fn: str, name: str, t: torch.Tensor, dev: torch.device) -> None:
     if t.device != dev:
         raise ValueError(f"{fn}: {name} on {t.device}, q on {dev}")
@@ -179,6 +194,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (o (B,S,H,hd) bf16, lse (B,H,S) f32). hd is 64 or 128; S and T need
     not be multiples of the tile. Raises for anything the kernel does not
     take; there is no fallback."""
+    q, k, v = (_size1_strides(t) for t in (q, k, v))
     _check_shapes("flash_attention_fwd", q, k, v)
     dev = q.device
     B, S, H, hd = q.shape
@@ -222,6 +238,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
     (dk, dv) (B,T,KVH,hd) bf16. Raises for anything the kernel does not
     take."""
     fn = "flash_attention_bwd_dkv"
+    q, k, v, do = (_size1_strides(t) for t in (q, k, v, do))
     _check_shapes(fn, q, k, v, ("dO", do))
     _check_stats(fn, lse, delta, q)
     dev = q.device
@@ -249,6 +266,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True):
     """The dQ kernel: operands as ``flash_attention_bwd_dkv`` -> dq
     (B,S,H,hd) bf16. Raises for anything the kernel does not take."""
     fn = "flash_attention_bwd_dq"
+    q, k, v, do = (_size1_strides(t) for t in (q, k, v, do))
     _check_shapes(fn, q, k, v, ("dO", do))
     _check_stats(fn, lse, delta, q)
     dev = q.device

@@ -18,6 +18,14 @@ gather or scatter, static shapes). The outputs are the reference's:
   capacity is max(min_capacity, ceil(T k capacity_factor / E));
 - the router runs in f32, the expert products in x's dtype, and dispatch
   and combine are cast to x's dtype before their einsums.
+
+Over a mesh (``mesh``, more than one rank) the experts are split over the
+``expert`` axis (each rank holds E / ep of them, and their ffn hidden may be
+split over ``model``). Routing is computed on the tokens of every rank,
+gathered over the axes ``token_axes`` splits them on, as GSPMD computes the
+reference's on the global batch; each rank runs the dispatch and combine
+of its own experts, the result is summed over ``expert`` and ``model``, and
+each rank keeps its own tokens.
 """
 
 from __future__ import annotations
@@ -125,9 +133,14 @@ def init_moe_params(generator: torch.Generator, config: MoEConfig,
 
 
 def moe_ffn(params: dict, x: torch.Tensor, config: MoEConfig,
-            mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            mask: Optional[torch.Tensor] = None, mesh=None,
+            token_axes: Tuple[Tuple[str, ...], ...] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed SwiGLU expert FFN: x (B, S, D), mask (B, S) 1 = real token ->
-    (out (B, S, D) in x's dtype, aux_loss f32)."""
+    (out (B, S, D) in x's dtype, aux_loss f32). Over ``mesh``, x is this
+    rank's block of tokens, split along dim d over the axes
+    ``token_axes[d]`` (major first), and ``params`` hold its experts."""
+    if mesh is not None:
+        return _moe_ffn_sharded(params, x, config, mask, mesh, token_axes)
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
@@ -140,3 +153,36 @@ def moe_ffn(params: dict, x: torch.Tensor, config: MoEConfig,
     ye = torch.einsum("ecf,efd->ecd", h, params["w_down"])                # (E, C, D)
     out = torch.einsum("ecd,tec->td", ye, gate.combine.to(x.dtype))
     return out.reshape(B, S, D), gate.aux_loss
+
+
+def _moe_ffn_sharded(params, x, config: MoEConfig, mask, mesh, token_axes):
+    from ..parallel import comm
+    from ..parallel.mesh import axis_index
+
+    def whole(t):
+        for d, axes in enumerate(token_axes):
+            for axis in reversed(axes):  # the minor axis first
+                t = comm.gather(t, mesh, axis, d)
+        return t
+
+    xs = whole(x)
+    ms = None if mask is None else whole(mask)
+    B, S, D = xs.shape
+    T = B * S
+    xt = xs.reshape(T, D)
+    logits = xt.float() @ params["router"].float()
+    gate = top_k_gating(logits, k=config.k, capacity_factor=config.capacity_factor,
+                        token_mask=None if ms is None else ms.reshape(T))
+    n_local = params["w_gate"].shape[0]
+    e0 = axis_index(mesh, "expert") * n_local
+    mine = slice(e0, e0 + n_local)
+    xe = torch.einsum("td,tec->ecd", xt, gate.dispatch[:, mine].to(x.dtype))
+    h = (F.silu(torch.einsum("ecd,edf->ecf", xe, params["w_gate"]))
+         * torch.einsum("ecd,edf->ecf", xe, params["w_up"]))
+    ye = torch.einsum("ecf,efd->ecd", h, params["w_down"])
+    out = torch.einsum("ecd,tec->td", ye, gate.combine[:, mine].to(x.dtype))
+    out = comm.psum(out, mesh, ("expert", "model")).reshape(B, S, D)
+    for d, axes in enumerate(token_axes):
+        if axes:
+            out = comm.local_part(out, mesh, axes, d)
+    return out, gate.aux_loss

@@ -5,8 +5,9 @@ backend.py:16,32, Backend/BackendConfig with on_start/on_training_start/
 on_shutdown). The JAX package's ``JaxConfig`` (the ``jax.distributed``
 handshake and a device mesh) has no counterpart in a package without
 JAX: its role goes to ``TorchConfig`` (``torch_trainer.py``), whose
-backend runs ``torch.distributed.init_process_group`` on every worker.
-Mesh shapes wait for the port of ``parallel/mesh.py``.
+backend runs ``torch.distributed.init_process_group`` on every worker and
+hands ``TorchConfig.mesh_shape`` (``JaxConfig.mesh_shape``'s counterpart)
+to ``ray_tpu_torch.parallel.make_mesh`` in each.
 """
 
 from __future__ import annotations

@@ -9,6 +9,18 @@ has ``TorchTrainer`` in its place, and a train loop runs
 ``ray_tpu_torch.parallel.make_train_step`` where the reference's runs
 the JAX one.
 
+The train_loop_per_worker runs inside each gang worker with:
+- ``ray_tpu_torch.train.get_context()``: rank and world;
+- ``ray_tpu_torch.train.report(metrics, checkpoint=...)``: metrics and
+  checkpoints;
+- ``ray_tpu_torch.train.get_checkpoint()``: the resume point after a
+  restart;
+- ``ray_tpu_torch.parallel.make_mesh()``: the worker's mesh over the
+  gang's process group, shaped by ``TorchConfig.mesh_shape`` (all fsdp
+  when it is None), so that data/fsdp/model/seq/expert shardings run as
+  collectives on the group's backend. (In the JAX package one worker owns
+  every local chip and its mesh is over them; here a worker is one rank.)
+
 The process group's backend follows the reference's rule: "nccl" when
 the gang's workers ask for GPUs, "gloo" otherwise (``TorchConfig.backend``
 None); a worker on nccl sets its card before it joins the group.
@@ -30,10 +42,13 @@ class TorchConfig(BackendConfig):
     """reference: train/torch/config.py TorchConfig (backend/timeout).
 
     backend: "nccl" or "gloo"; None picks nccl when the workers ask for
-    GPUs and gloo otherwise."""
+    GPUs and gloo otherwise. mesh_shape: axis sizes of the mesh
+    ``parallel.make_mesh()`` builds in each worker, e.g. {"fsdp": 2,
+    "model": 2}; None means every rank on the auto axis (fsdp)."""
 
     backend: Optional[str] = None
     init_timeout_s: float = 120.0
+    mesh_shape: Optional[Dict[str, int]] = None
 
     @property
     def backend_cls(self):
@@ -50,14 +65,19 @@ class TorchConfig(BackendConfig):
 
 
 def _torch_worker_setup(worker, addr: str, world_size: int, rank: int,
-                        backend: str, timeout_s: float):
+                        backend: str, timeout_s: float, mesh_shape=None):
     """Runs inside each TrainWorker actor (the reference's
     _setup_torch_process_group, config.py:66). On nccl the worker's card
-    is the first of its pinned ones, set before the group is joined."""
+    is the first of its pinned ones, set before the group is joined.
+    ``mesh_shape`` becomes the shape of ``parallel.make_mesh()``."""
     import datetime
 
     import torch
     import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import mesh
+
+    mesh.set_default_mesh_shape(mesh_shape)
 
     if backend == "nccl":
         torch.cuda.set_device(0)
@@ -93,7 +113,7 @@ class _TorchBackend(Backend):
         ray_tpu_torch.get([
             w.actor.run_backend_hook.remote(
                 _torch_worker_setup, addr, n, w.rank,
-                backend, backend_config.init_timeout_s,
+                backend, backend_config.init_timeout_s, backend_config.mesh_shape,
             )
             for w in worker_group.workers
         ])

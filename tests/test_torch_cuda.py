@@ -211,6 +211,24 @@ def test_flash_attention_bwd_reads_strided_dout(dev):
         assert _row_rel_err(a, r) <= GRAD_ROW_RTOL, name
 
 
+def test_flash_attention_takes_any_stride_on_a_size1_dim(dev):
+    """A one-row batch whose batch stride is 1 (autograd handed one such dO
+    to a pipeline stage): the stride is never stepped along, so the kernels
+    take it, forward and backward, and agree with the contiguous call bit
+    for bit."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, S, H, KVH, hd = 1, 256, 4, 2, 128
+    q, k, v, do = (_randn(gen, B, S, n, hd) for n in (H, KVH, KVH, H))
+    odd = [torch.empty_strided(t.shape, (1,) + t.stride()[1:], dtype=t.dtype,
+                               device=dev).copy_(t) for t in (q, k, v, do)]
+    o, lse = cuda_attention.flash_attention_fwd(q, k, v, causal=True)
+    o2, lse2 = cuda_attention.flash_attention_fwd(*odd[:3], causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b in zip(cuda_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                    cuda_attention.flash_attention_bwd(*odd[:3], o, lse, odd[3], causal=True)):
+        assert torch.equal(a, b)
+
+
 CE_SHAPES = [
     (256, 128, 1024),
     (200, 136, 1000),                   # ragged N, a K tail, a ragged vocab tile
@@ -925,3 +943,40 @@ def test_nccl_group_on_the_card_matches_the_plain_path(dev, dtype):
     finally:
         col.destroy_collective_group(f"cuda_{dtype}")
         col.destroy_collective_group(f"plain_{dtype}")
+
+
+@pytest.mark.parametrize("op", ["ring", "ulysses"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mesh_attention_on_shared_card_matches_one_rank(dev, tmp_path, op, causal):
+    """Ring and Ulysses attention on two gloo ranks sharing the card
+    (``tests/torch_mesh_ranks.py``; CUDA tensors staged through the host),
+    each rank's sequence block through the kernels, against one rank's
+    flash_attention on the whole: o and the gradients per row at
+    ATTN_ROW_RTOL / GRAD_ROW_RTOL. The ring runs its hop plan: rank r runs
+    r + 1 forward and backward hops when causal, 2 otherwise; Ulysses one
+    of each kernel a rank."""
+    import numpy as np
+
+    import torch_mesh_ranks as ranks
+    from ray_tpu_torch.ops import flash_attention
+
+    B, S, H, KVH, hd = 1, 1024, 16, 8, 128
+    rng = np.random.default_rng(5)
+    arrays = {f"c/{n}": rng.standard_normal(shape).astype(np.float32)
+              for n, shape in (("q", (B, S, H, hd)), ("k", (B, S, KVH, hd)),
+                               ("v", (B, S, KVH, hd)), ("g", (B, S, H, hd)))}
+    np.savez(tmp_path / "qkv.npz", **arrays)
+    outs = ranks.launch(op, 2, tmp_path, timeout=300, device="cuda", bf16=True,
+                        cases=[{"tag": "c", "causal": causal}])
+    q, k, v, g = (torch.from_numpy(arrays[f"c/{n}"]).to(dev).bfloat16() for n in "qkvg")
+    whole = [t.requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*whole, causal=causal)
+    refs = dict(zip(("o", "dq", "dk", "dv"), (o, *torch.autograd.grad(o, whole, g))))
+    for r, out in enumerate(outs):
+        got = out["c"]
+        assert _row_rel_err(got["o"].to(dev), refs["o"]) <= ATTN_ROW_RTOL, r
+        for n in ("dq", "dk", "dv"):
+            assert _row_rel_err(got[n].to(dev), refs[n]) <= GRAD_ROW_RTOL, (r, n)
+        hops = 1 if op == "ulysses" else (r + 1 if causal else 2)
+        assert got["launches"] == {"flash_attention_fwd": hops, "flash_attention_bwd_dkv": hops,
+                                   "flash_attention_bwd_dq": hops}, (r, got["launches"])

@@ -245,6 +245,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         init_moe_params(torch.Generator(), moe_llama.MOE_TINY.moe)
     with pytest.raises(RuntimeError):
         vit.init_params(torch.Generator(), vit.VIT_TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.make_mesh()      # before any process group is started
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.pipe_mesh()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -263,3 +267,45 @@ def test_convert_annotations_resolve():
     hints = typing.get_type_hints(convert._unflatten)
     assert hints["flat"] == typing.Dict[str, typing.Any]
     typing.get_type_hints(convert.params_from_numpy)
+
+
+_SLICE10_PROBE = """
+import sys
+import torch
+from ray_tpu_torch import parallel
+from ray_tpu_torch.parallel import comm, mesh, pipeline
+import importlib
+importlib.import_module("ray_tpu_torch.ops.ring_attention")
+importlib.import_module("ray_tpu_torch.ops.ulysses")
+from ray_tpu_torch.ops import ring_attention, ulysses_attention
+from ray_tpu_torch.models import gather_params, llama, shard_params
+cfg = llama.LLAMA_TINY
+m = parallel.make_mesh(device="cpu")
+opt = parallel.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+specs = llama.param_specs(cfg)
+state, sh = parallel.create_train_state(
+    m, torch.Generator().manual_seed(0), lambda g: llama.init_params(g, cfg, "cpu"), opt, specs)
+step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt, m, sh)
+state, out = step(state, {"tokens": torch.zeros((1, 9), dtype=torch.long)})
+assert bool(torch.isfinite(out["loss"]))
+assert gather_params(state, m, specs)["embed"].shape == (cfg.vocab_size, cfg.dim)
+q = torch.randn(1, 8, 2, 16)
+assert ring_attention(q, q, q, mesh=m).shape == q.shape
+assert ulysses_attention(q, q, q, mesh=m).shape == q.shape
+p = parallel.pipe_mesh("cpu")
+run = parallel.pipeline_sharded(lambda w, x: x * w["a"], {"a": torch.ones(1, 1)}, p)
+assert run(torch.ones(2, 3)).shape == (2, 3)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_parallel_modules_import_neither_jax_nor_ray_tpu():
+    """parallel.mesh, parallel.comm, parallel.pipeline, ops.ring_attention,
+    ops.ulysses and the shard/gather helpers, each driven on a world of
+    one CPU rank."""
+    out = subprocess.run([sys.executable, "-c", _SLICE10_PROBE], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout

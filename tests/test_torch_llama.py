@@ -133,8 +133,11 @@ def test_config_checks_raise(setup):
     with pytest.raises(ValueError, match="not applicable"):
         tl.loss_fn(tparams, {"tokens": torch.from_numpy(tokens)},
                    dataclasses.replace(tcfg, ce_impl="fused", logit_softcap=30.0))
-    with pytest.raises(NotImplementedError):
-        tl.forward(tparams, torch.from_numpy(tokens), dataclasses.replace(tcfg, attention_impl="ring"))
+    # ring without a mesh falls back to flash, as the reference's
+    # _attention_ring does with no ambient mesh (llama.py:243-244)
+    ring = tl.forward(tparams, torch.from_numpy(tokens), dataclasses.replace(tcfg, attention_impl="ring"))
+    flash = tl.forward(tparams, torch.from_numpy(tokens), dataclasses.replace(tcfg, attention_impl="flash"))
+    assert torch.equal(ring, flash)
     with pytest.raises(ValueError, match="unknown attention_impl"):
         tl.forward(tparams, torch.from_numpy(tokens), dataclasses.replace(tcfg, attention_impl="x"))
 
