@@ -5,8 +5,10 @@
 
 Runs from the root of a checkout and needs one Hopper card, ``nvcc`` and
 nothing else (``--mesh-nccl``: four cards, and it runs only the mesh
-training paths over NCCL, one rank a card, against one device; see
-``mesh_nccl_phase``): it builds the kernels from ``ray_tpu_torch/csrc`` and then
+training paths over NCCL, one rank a card, against one device, then
+Anakin over four cards and Sebulba at SLICE, each's update against one
+card's; see ``mesh_nccl_phase`` and ``rllib_nccl_phase``): it builds the
+kernels from ``ray_tpu_torch/csrc`` and then
 
 1. kernel phases: each of the seven hand-written kernels at the main
    paths' shapes, held against its plain PyTorch version (f32 from the
@@ -183,6 +185,30 @@ training paths over NCCL, one rank a card, against one device; see
    blocks (gradients against the sequential microbatches; 1F1B's peak
    memory below GPipe's, summed over the ranks), and the expert-parallel
    MoE FFN at Mixtral's expert widths (``mesh_expert``);
+6l. rllib phase (``ray_tpu_torch.rllib``, which reaches no kernel of the
+   port: the RL MLPs' products are torch matmuls, as the reference's are
+   plain ``@``), its workers started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``
+   and ``OMP_NUM_THREADS=1``: (1) Anakin
+   through ``PodracerConfig.build()`` in its own ``init(num_cpus=2)``, the
+   worker pinned to the card (it must report ``cuda:0``), at the config's
+   defaults (hiddens (32, 32), 16-step fragments, lr 5e-3, compiled DAG)
+   with both losses: two same-seed 4-tick runs at 64 envs must give
+   bitwise-equal metrics rows, and over ``RLLIB_TICKS`` ticks at 4096 envs
+   the mean episode return of the last 5 ticks must exceed the first 5's;
+   printed: env steps/s and supersteps/s, the reward trajectory, and for a
+   superstep run in this process its ms, kernel launches (torch.profiler)
+   and peak memory; (2) every learner's update (the Anakin superstep's
+   with V-trace and with APPO, PPO's, DQN's, SAC's, BC's, MARWIL's,
+   CQL's) at its config's default shapes, from one seeded params tree and
+   host batch, on the card and on the CPU: losses within ``RLLIB_RTOL``
+   (atol ``RLLIB_ATOL``), each updated tensor within ``RLLIB_RTOL`` of its
+   CPU twin in norm (``rllib_hold``), with the card's update ms; (3) BC
+   trained 25 epochs from a 2000-row ``Dataset`` whose batches
+   ``iter_batches(device_put=...)`` stages on the card (loss below 0.25,
+   accuracy above 0.9); (4) Sebulba, 2 actors x 16 envs on CPU bundles and
+   the learner on the card (asserted from its metrics), 10 rounds after a
+   first: rounds/s and the bytes handed off a round. No kernel of the port
+   may be launched in this process during the phase;
 7. MoE check: ``MIXTRAL_8X7B``'s widths cut to 2 layers (bf16, remat) on
    2 x 513 tokens, the flash path against the einsum attention path with
    the routing pinned to the einsum path's (loss, aux loss, every
@@ -2912,6 +2938,435 @@ def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
     return counted
 
 
+RLLIB_RTOL, RLLIB_ATOL = 1e-5, 1e-6
+RLLIB_TICKS = 50            # Anakin ticks at the larger env count
+RLLIB_ENVS = (64, 4096)     # PodracerConfig's default, and GPU-batched scale
+
+
+def _anakin_config(loss: str, num_envs: int, seed: int = 0, **podracer):
+    from ray_tpu_torch.rllib.podracer import PodracerConfig
+
+    return (PodracerConfig().environment("CartPole-v1")
+            .podracer(mode="anakin", num_envs=num_envs, use_compiled_dag=True, **podracer)
+            .training(loss=loss).debugging(seed=seed))
+
+
+def _rllib_batch(rng, T, N, obs_dim=4, num_actions=2) -> dict:
+    """A seeded time-major V-trace batch (numpy) of T steps of N envs."""
+    return {"obs": rng.standard_normal((T, N, obs_dim)).astype(np.float32),
+            "actions": rng.integers(0, num_actions, (T, N)),
+            "rewards": np.ones((T, N), np.float32),
+            "dones": (rng.random((T, N)) < 0.05).astype(np.float32),
+            "logp_mu": np.log(rng.uniform(0.3, 0.7, (T, N))).astype(np.float32),
+            "final_obs": rng.standard_normal((N, obs_dim)).astype(np.float32)}
+
+
+def rllib_learner_cases() -> dict:
+    """name -> run(device) -> (losses, params after one update): each
+    learner's update at its config's default shapes, from one seeded
+    params tree and one seeded host batch (the same on every device)."""
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, DQNConfig, MARWILConfig, PPOConfig,
+                                     SACConfig, core, dqn, ppo, sac)
+    from ray_tpu_torch.rllib.podracer import PodracerConfig
+    from ray_tpu_torch.rllib.podracer.learner import make_update_fn
+
+    rng = np.random.default_rng(0)
+    cases = {}
+
+    def p0(spec, seed):
+        return core.params_to_numpy(core.init_mlp_module(torch.Generator().manual_seed(seed),
+                                                         spec, "cpu"))
+
+    for loss in ("vtrace", "appo"):
+        cfg = PodracerConfig().training(loss=loss)
+        batch, params = _rllib_batch(rng, cfg.rollout_fragment_length, cfg.num_envs), p0(cfg.spec, 1)
+
+        def superstep(dev, cfg=cfg, batch=batch, params=params):
+            opt, upd = make_update_fn(cfg, cfg.spec)
+            p = core.params_from_numpy(params, dev)
+            p, _, m = upd(p, opt.init(p), batch)
+            return {k: m[k] for k in ("policy_loss", "vf_loss", "entropy")}, p
+        cases[f"anakin_{loss}"] = superstep
+
+    pcfg = PPOConfig()
+    T, N = pcfg.rollout_fragment_length, pcfg.num_env_runners * pcfg.num_envs_per_env_runner
+    rollout = _rllib_batch(rng, T, N)
+    rollout["logp"] = rollout.pop("logp_mu")
+    rollout["values"] = rng.standard_normal((T, N)).astype(np.float32)
+    pspec = core.MLPSpec(4, 2, pcfg.hiddens)
+    pparams = p0(pspec, 2)
+    perms = torch.stack([torch.randperm(T * N, generator=torch.Generator().manual_seed(3 + e))
+                         for e in range(pcfg.num_epochs)])
+
+    def ppo_update(dev):
+        opt, upd = ppo.make_ppo_update(pcfg, pspec)
+        p = core.params_from_numpy(pparams, dev)
+        p, _, m = upd(p, opt.init(p), rollout, perms)
+        return dict(m), p
+    cases["ppo"] = ppo_update
+
+    def transitions(B, obs_dim, act):
+        return {"obs": rng.standard_normal((B, obs_dim)).astype(np.float32), "actions": act,
+                "rewards": rng.standard_normal(B).astype(np.float32),
+                "next_obs": rng.standard_normal((B, obs_dim)).astype(np.float32),
+                "dones": (rng.random(B) < 0.05).astype(np.float32),
+                "returns": rng.standard_normal(B).astype(np.float32)}
+
+    dcfg = DQNConfig()
+    dspec = core.MLPSpec(4, 2, dcfg.hiddens)
+    dparams = core.params_to_numpy(dqn._init_q_net(torch.Generator().manual_seed(4), dspec, "cpu"))
+    dbatch = transitions(dcfg.train_batch_size, 4, rng.integers(0, 2, dcfg.train_batch_size))
+
+    def dqn_update(dev):
+        opt, upd = dqn.make_dqn_update(dcfg, dspec)
+        p = core.params_from_numpy(dparams, dev)
+        target = core.tree_map(lambda t: t * 0.9, p)
+        p, _, loss, _ = upd(p, target, opt.init(p), dbatch)
+        return {"loss": loss}, p
+    cases["dqn"] = dqn_update
+
+    scfg = SACConfig()
+    sparams = core.params_to_numpy(sac.init_sac_params(torch.Generator().manual_seed(5), 3, 1,
+                                                       scfg.hiddens, "cpu"))
+    B = scfg.train_batch_size
+    sbatch = transitions(B, 3, rng.uniform(-1, 1, (B, 1)).astype(np.float32))
+    eps = torch.randn((2, B, 1), generator=torch.Generator().manual_seed(6))
+
+    def sac_update(dev):
+        a, c, al, upd = sac.make_sac_update(scfg, 1)
+        p = core.params_from_numpy(sparams, dev)
+        tq = core.tree_map(torch.clone, {"q1": p["q1"], "q2": p["q2"]})
+        la = torch.zeros((), device=dev)
+        state = (p, tq, la, {"critic": c.init(tq), "actor": a.init(p["pi"]), "alpha": al.init(la)})
+        (p, tq, la, _), closs, aloss = upd(state, sbatch, eps[0], eps[1])
+        return {"critic_loss": closs, "actor_loss": aloss, "log_alpha": la}, (p, tq)
+    cases["sac"] = sac_update
+
+    for name, cls in (("bc", BCConfig), ("marwil", MARWILConfig), ("cql", CQLConfig)):
+        cfg0 = cls()
+        spec = core.MLPSpec(4, 2, cfg0.hiddens)
+        batch = transitions(cfg0.train_batch_size, 4, rng.integers(0, 2, cfg0.train_batch_size))
+        params = (core.params_to_numpy(dqn._init_q_net(torch.Generator().manual_seed(7), spec,
+                                                       "cpu"))
+                  if name == "cql" else p0(spec, 7))
+
+        def offline(dev, cls=cls, name=name, batch=batch, params=params):
+            algo = cls().training(device=str(dev)).build_algo(4, 2)
+            p = core.params_from_numpy(params, dev)
+            s = algo.optimizer.init(p)
+            tb = core.to_tensors(batch, dev)
+            if name == "bc":
+                p, _, loss = algo._update(p, s, tb["obs"], tb["actions"])
+            elif name == "marwil":
+                p, _, _, loss, _, _ = algo._update(p, s, torch.ones((), device=dev), tb["obs"],
+                                                   tb["actions"], tb["returns"])
+            else:
+                p, _, loss, _, _ = algo._update(p, core.tree_map(lambda t: t * 0.9, p), s, batch)
+            return {"loss": loss}, p
+        cases[name] = offline
+    return cases
+
+
+def rllib_hold(name: str, card, cpu) -> str:
+    """Fail unless the card's losses are within RLLIB_RTOL (atol
+    RLLIB_ATOL) of the CPU's and each updated tensor within RLLIB_RTOL of
+    its CPU twin in norm (||card - cpu|| <= RTOL ||cpu|| + ATOL: Adam
+    divides each element by its own RMS, so an element whose gradient is
+    ~1e-10 turns the two devices' f32 summation orders into a visible step
+    while the tensor agrees). Returns the errors as a line."""
+    from ray_tpu_torch.rllib import core
+
+    (lk, pk), (lc, pc) = card, cpu
+    loss_err = 0.0
+    for k in lc:
+        a, b = float(lk[k]), float(lc[k])
+        fail_unless(abs(a - b) <= RLLIB_RTOL * abs(b) + RLLIB_ATOL,
+                    f"rllib learners: {name} {k} on the card {a!r}, on the CPU {b!r}")
+        loss_err = max(loss_err, abs(a - b) / max(abs(b), 1e-30))
+    worst = max_abs = 0.0
+    for a, b in zip(core.tree_leaves(pk), core.tree_leaves(pc)):
+        a, b = a.double().cpu(), b.double().cpu()
+        err = (a - b).norm().item()
+        fail_unless(err <= RLLIB_RTOL * b.norm().item() + RLLIB_ATOL,
+                    f"rllib learners: {name} params differ by {err} in norm "
+                    f"(||cpu|| {b.norm().item()})")
+        worst = max(worst, err / max(b.norm().item(), 1e-30))
+        max_abs = max(max_abs, (a - b).abs().max().item())
+    return (f"{name}: losses rel err {loss_err:.2e}, params per-tensor rel err {worst:.2e} "
+            f"(max abs {max_abs:.2e})")
+
+
+def rllib_phase(dev, smi: str, kernels: dict) -> dict:
+    """The rllib phase: Podracer's Anakin on the card (both losses, 64 and
+    4096 envs; bitwise same-seed runs, learning over RLLIB_TICKS ticks, the
+    launches and peak memory of a superstep), every learner's update on the
+    card against the same update on the CPU, BC trained from a Dataset
+    staged on the card, and Sebulba with its learner on the card. Returns
+    the kernels' launches on the phase's in-process path (none: RLlib
+    reaches no kernel of the port)."""
+    import pickle
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import BCConfig, core
+    from ray_tpu_torch.rllib.podracer import PodracerConfig
+    from ray_tpu_torch.rllib.podracer.anakin import AnakinWorker
+
+    def tag(line):
+        print(f"rllib [{smi}]: {line}")
+
+    t_phase = time.perf_counter()
+    for wrapper, _, _ in kernels.values():
+        wrapper.launches = 0
+    # the workers spawned in the phase inherit: deterministic cuBLAS (the
+    # Anakin workers), and one compute thread a process for the CPU side
+    # (the Sebulba actors' small nets; a thread pool in each of several
+    # processes on the host cost 15x in the CPU tests)
+    saved = {k: os.environ.get(k) for k in ("CUBLAS_WORKSPACE_CONFIG", "OMP_NUM_THREADS")}
+    os.environ.update(CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="1")
+    try:
+        # ---- 1. Anakin on the card, through PodracerConfig.build()
+        rt.init(num_cpus=2, max_workers=2)
+        try:
+            fail_unless(rt.cluster_resources().get("GPU") == 1.0,
+                        f"rllib: the runtime sees {rt.cluster_resources().get('GPU')} GPUs")
+            builds = []  # seconds from build() to the worker's first tick
+            for loss in ("vtrace", "appo"):
+                rows = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    drv = _anakin_config(loss, RLLIB_ENVS[0], seed=3).build()
+                    builds.append(time.perf_counter() - t0)
+                    try:
+                        fail_unless(drv.device == "cuda:0",
+                                    f"rllib: the Anakin worker runs on {drv.device}")
+                        rows.append(drv.train(num_ticks=4))
+                        if len(rows) == 2:
+                            steady = drv.train(num_ticks=20)
+                    finally:
+                        drv.stop()
+                fail_unless(np.array_equal(rows[0]["metrics_rows"], rows[1]["metrics_rows"]),
+                            f"rllib: two same-seed 4-tick Anakin runs ({loss}, "
+                            f"{RLLIB_ENVS[0]} envs) differ")
+                tag(f"anakin {loss}, {RLLIB_ENVS[0]} envs on {rows[1]['device']}: two same-seed "
+                    f"4-tick runs bitwise equal (4 ticks in {rows[1]['time_s']:.2f} s, the "
+                    f"first paying for the worker's first kernels); then "
+                    f"{steady['steps_per_sec']:.0f} env steps/s, "
+                    f"{20 / steady['time_s']:.1f} supersteps/s over 20 ticks")
+                t0 = time.perf_counter()
+                drv = _anakin_config(loss, RLLIB_ENVS[1], seed=0).build()
+                builds.append(time.perf_counter() - t0)
+                try:
+                    big = drv.train(num_ticks=RLLIB_TICKS)
+                    steady = drv.train(num_ticks=10)
+                finally:
+                    drv.stop()
+                traj = big["reward_trajectory"]
+                first, last = np.nanmean(traj[:5]), np.nanmean(traj[-5:])
+                fail_unless(last > first, f"rllib: Anakin {loss} at {RLLIB_ENVS[1]} envs did "
+                                          f"not learn: first 5 ticks {first}, last 5 {last}")
+                tag(f"anakin {loss}, {RLLIB_ENVS[1]} envs ({RLLIB_ENVS[1] * 16} env steps a "
+                    f"superstep): {steady['steps_per_sec']:.0f} env steps/s, "
+                    f"{10 / steady['time_s']:.2f} supersteps/s over 10 ticks after "
+                    f"{RLLIB_TICKS}; mean return over the {RLLIB_TICKS}, first 5 ticks "
+                    f"{first:.2f}, last 5 {last:.2f}; trajectory "
+                    + " ".join(f"{v:.1f}" for v in traj))
+        finally:
+            rt.shutdown()
+        tag(f"anakin runs {time.perf_counter() - t_phase:.1f} s, of which {sum(builds):.1f} s in "
+            f"{len(builds)} builds (a worker process, its CUDA start, the compiled DAG): "
+            + " ".join(f"{b:.1f}" for b in builds))
+
+        # a superstep in this process: its launches, and the memory the
+        # worker's carry and a superstep take (above what the process held)
+        for n_env in RLLIB_ENVS:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            w = AnakinWorker(pickle.dumps(_anakin_config("vtrace", n_env).training(
+                device=str(dev))))
+            for _ in range(3):
+                w._superstep()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                w._superstep()
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            launches = sum(1 for e in prof.events() if e.name in (
+                "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+            busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+            t0 = time.perf_counter()
+            for _ in range(10):
+                w._superstep()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 10 * 1e3
+            tag(f"anakin superstep in this process, {n_env} envs: {ms:.2f} ms "
+                f"({n_env * 16 / ms * 1e3:.0f} env steps/s), {launches} kernel launches, device "
+                f"busy {busy_us / 1e3:.2f} ms of it (torch.profiler), peak memory "
+                f"{peak / 2**20:.1f} MiB")
+            del w
+        torch.cuda.empty_cache()
+
+        # ---- 2. every learner's update on the card against the CPU
+        lines = []
+        for name, run in rllib_learner_cases().items():
+            card, cpu = run(dev), run(torch.device("cpu"))
+            lines.append(rllib_hold(name, card, cpu))
+            ms = time_ms(lambda: run(dev), 5)
+            lines[-1] += f", update {ms:.2f} ms on the card"
+        for line in lines:
+            tag(f"learner {line}")
+        tag(f"learners done at {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- 3. BC trained from a Dataset staged on the card
+        rt.init(num_cpus=2, max_workers=2)
+        try:
+            import ray_tpu_torch.data as rdata
+
+            rng = np.random.default_rng(0)
+            obs = rng.normal(size=(2000, 4)).astype(np.float32)
+            acts = (obs[:, 0] + obs[:, 1] > 0).astype(np.int64)
+            ds = rdata.from_items([{"obs": o, "actions": a} for o, a in zip(obs, acts)])
+            algo = BCConfig().training(lr=3e-3).build_algo(obs_dim=4, num_actions=2)
+            fail_unless(all(t.is_cuda for t in core.tree_leaves(algo.params)),
+                        "rllib: BC's params are not on the card")
+            t0 = time.perf_counter()
+            res = algo.train_on_dataset(ds, epochs=25)
+            bc_s = time.perf_counter() - t0
+            test = rng.normal(size=(200, 4)).astype(np.float32)
+            acc = np.mean([algo.compute_single_action(o) == int(o[0] + o[1] > 0) for o in test])
+            fail_unless(res["num_samples_trained"] == 25 * 2000 and res["loss"] < 0.25
+                        and acc > 0.9, f"rllib: BC on the card: {res}, accuracy {acc}")
+            tag(f"BC from a Dataset staged on the card (iter_batches device_put): 25 epochs of "
+                f"2000 rows in {bc_s:.2f} s ({25 * 2000 / bc_s:.0f} rows/s), loss "
+                f"{res['loss']:.4f}, accuracy {acc:.3f}")
+        finally:
+            rt.shutdown()
+
+        tag(f"BC done at {time.perf_counter() - t_phase:.1f} s")
+        # ---- 4. Sebulba: the learner on the card, the actors on CPU bundles
+        rt.init(num_cpus=4, max_workers=4)
+        try:
+            cfg = (PodracerConfig().environment("CartPole-v1")
+                   .podracer(mode="sebulba", namespace="chip_smoke")
+                   .env_runners(num_actors=2, envs_per_actor=16).debugging(seed=7))
+            drv = cfg.build()
+            try:
+                fail_unless(drv.layout["learner_bundle"] == {"GPU": 1}
+                            and drv.layout["actor_bundle"] == {"CPU": 1},
+                            f"rllib: Sebulba's layout on one card is {drv.layout}")
+                traj = rt.get(drv._sample.remote(drv._cfg_blob, 0, 0, None)[0], timeout=300)
+                handoff = cfg.num_actors * sum(a.nbytes for a in traj.values()
+                                               if isinstance(a, np.ndarray))
+                drv.train(num_rounds=1)  # the learner's first round pays its CUDA start
+                res = drv.train(num_rounds=10)
+                # where a round's time goes: one fragment, then one learner
+                # update on it, each waited for alone
+                t0 = time.perf_counter()
+                tref, _ = drv._sample.remote(drv._cfg_blob, 0, 11, drv._carries[0])
+                rt.get(tref, timeout=300)
+                act_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                rt.get(drv._learn.remote(drv._cfg_blob, drv._state_ref, tref, tref)[1],
+                       timeout=300)
+                learn_s = time.perf_counter() - t0
+            finally:
+                drv.stop()
+            fail_unless(res["learner_metrics"]["device"] == "cuda:0",
+                        f"rllib: Sebulba's learner ran on {res['learner_metrics']['device']}")
+            fail_unless(res["learner_step"] == 11 and np.isfinite(res["learner_metrics"]["vf_loss"]),
+                        f"rllib: Sebulba: {res['learner_steps']} {res['learner_metrics']}")
+            tag(f"sebulba, 2 actors x 16 envs on CPU bundles, the learner on "
+                f"{res['learner_metrics']['device']}: {10 / res['time_s']:.2f} rounds/s, "
+                f"{res['steps_per_sec']:.0f} env steps/s, {handoff} bytes handed off a round; "
+                f"one fragment {act_s * 1e3:.1f} ms and one learner task {learn_s * 1e3:.1f} ms "
+                f"as a task round trip each")
+        finally:
+            rt.shutdown()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = {name: wrapper.launches for name, (wrapper, _, _) in kernels.items()}
+    fail_unless(not any(counts.values()), f"rllib: a kernel of the port was launched: {counts}")
+    left = _running(_worker_pids())
+    fail_unless(not left, f"rllib: worker processes left after shutdown: {left}")
+    tag(f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"rllib": counts}
+
+
+def rllib_nccl_phase(smi: str) -> None:
+    """``--mesh-nccl`` (four cards): Anakin over ``anakin_num_devices`` 4
+    (one env shard and one replica a card, the grads averaged over an NCCL
+    group of the four) and Sebulba at SLICE (2 actors and the learner, one
+    card each), each through its driver, and each's update held against
+    one card's update on the same batch (V-trace: the mean of the shards'
+    means is the global mean)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import core
+    from ray_tpu_torch.rllib.podracer import PodracerConfig
+    from ray_tpu_torch.rllib.podracer.learner import (make_sharded_update, make_update_fn,
+                                                      replicate, shard_batch)
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import NcclGroup
+
+    def tag(line):
+        print(f"rllib-nccl [{smi}]: {line}")
+
+    cfg = PodracerConfig()
+    batch = _rllib_batch(np.random.default_rng(0), cfg.rollout_fragment_length, cfg.num_envs)
+    params = core.params_to_numpy(core.init_mlp_module(torch.Generator().manual_seed(1),
+                                                       cfg.spec, "cpu"))
+    one = torch.device("cuda", 0)
+    opt, upd = make_update_fn(cfg, cfg.spec)
+    p = core.params_from_numpy(params, one)
+    ref, _, ref_m = upd(p, opt.init(p), batch)
+    devs = [torch.device("cuda", i) for i in range(4)]
+    _, supd = make_sharded_update(cfg, cfg.spec, NcclGroup(4, 0, "rllib-nccl", devices=devs))
+    p = core.params_from_numpy(params, one)
+    ps, _, m = supd(replicate(p, devs), replicate(opt.init(p), devs), shard_batch(batch, devs))
+    for i in range(4):
+        line = rllib_hold(f"sharded update, replica on card {i}",
+                          ({k: m[k] for k in ref_m}, ps[i]), (ref_m, ref))
+    tag(f"{line}; 4 cards against card 0 alone")
+
+    rt.init(num_cpus=8, max_workers=8)
+    try:
+        drv = PodracerConfig().environment("CartPole-v1").podracer(
+            mode="anakin", num_envs=4096, anakin_num_devices=4).build()
+        try:
+            r = drv.train(num_ticks=10)
+        finally:
+            drv.stop()
+        fail_unless(r["device"] == "cuda:0" and r["updates"] == 10 and np.isfinite(r["vf_loss"]),
+                    f"rllib-nccl: Anakin over 4 cards: {r['device']} {r['updates']}")
+        tag(f"anakin over 4 cards, 4096 envs (1024 a card): {r['steps_per_sec']:.0f} env steps/s")
+        scfg = (PodracerConfig().environment("CartPole-v1")
+                .podracer(mode="sebulba", namespace="rllib-nccl")
+                .env_runners(num_actors=2, envs_per_actor=32).debugging(seed=7))
+        drv = scfg.build()
+        try:
+            fail_unless(drv.layout["strategy"] == "SLICE" and drv.layout["actor_device"] == "cuda",
+                        f"rllib-nccl: Sebulba's layout on 4 cards is {drv.layout}")
+            res = drv.train(num_rounds=5)
+            trajs = [dict(batch, behavior_version=0)]
+            state0 = {"params": params, "opt_state": core.params_to_numpy(
+                opt.init(core.params_from_numpy(params, "cpu"))), "step": 0, "version": 0}
+            new_state, lm = rt.get(drv._learn.remote(drv._cfg_blob, state0, *trajs), timeout=300)
+        finally:
+            drv.stop()
+        fail_unless(res["learner_metrics"]["device"] == "cuda:0" and lm["device"] == "cuda:0",
+                    f"rllib-nccl: Sebulba's learner ran on {lm['device']}")
+        line = rllib_hold("sebulba learner", ({k: lm[k] for k in ref_m},
+                                              core.params_from_numpy(new_state["params"], "cpu")),
+                          (ref_m, ref))
+        tag(f"sebulba at SLICE (2 actors and the learner, a card each): "
+            f"{5 / res['time_s']:.2f} rounds/s; {line}, against card 0's update")
+    finally:
+        rt.shutdown()
+
+
 def moe_llama_widths():
     from ray_tpu_torch.models import moe_llama
 
@@ -3025,6 +3480,7 @@ def main(argv) -> int:
                         smi, ["flash_attention_fwd", "flash_attention_bwd_dkv",
                               "flash_attention_bwd_dq", "fused_ce_fwd", "fused_ce_bwd_dlog",
                               "fused_ce_bwd_dx", "fused_ce_bwd_dw"])
+        rllib_nccl_phase(smi)
         print(f"wall [{smi}]: {time.perf_counter() - t_main:.1f} s, the kernels' build included")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": n_cards}}))
@@ -3511,6 +3967,14 @@ def main(argv) -> int:
     # ---------------- mesh phase (main paths) ----------------
     # each rank's process has its own CUDA context; counted in each rank
     for path, counts in mesh_phase(cfg, dev, smi, list(kernels)).items():
+        for name in kernels:
+            launches[name][path] = counts[name]
+    torch.cuda.empty_cache()
+
+    # ---------------- rllib phase (main paths) ----------------
+    # the Anakin workers and Sebulba's learner have CUDA contexts of their
+    # own; this process's learner updates and superstep are counted here
+    for path, counts in rllib_phase(dev, smi, kernels).items():
         for name in kernels:
             launches[name][path] = counts[name]
     torch.cuda.empty_cache()

@@ -29,7 +29,10 @@ against itself on the CPU: the same dispatch, outputs within atol 1e-4
 (f32 products, TF32 off). A one-trial Tuner pinned to the card trains
 through every kernel, its losses within 1e-4 of the same steps in this
 process, and an "nccl" group's ops on the card match its plain path (f32
-rtol 1e-6, bf16 1e-2: sums over the cards in another order).
+rtol 1e-6, bf16 1e-2: sums over the cards in another order). RLlib: two
+same-seed Anakin runs on the card are bitwise equal, and every learner's
+update on the card matches the CPU's (losses 1e-5 relative, each updated
+tensor 1e-5 relative in norm).
 """
 
 import dataclasses
@@ -980,3 +983,40 @@ def test_mesh_attention_on_shared_card_matches_one_rank(dev, tmp_path, op, causa
         hops = 1 if op == "ulysses" else (r + 1 if causal else 2)
         assert got["launches"] == {"flash_attention_fwd": hops, "flash_attention_bwd_dkv": hops,
                                    "flash_attention_bwd_dq": hops}, (r, got["launches"])
+
+
+def test_anakin_on_the_card_is_bitwise_deterministic(dev, monkeypatch):
+    """Two same-seed Anakin runs through PodracerConfig.build() (the
+    worker pinned to the card, the carry on it, deterministic cuBLAS)
+    give bitwise-equal metrics rows."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from chip_smoke import _anakin_config
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    rt.init(num_cpus=2, max_workers=2)
+    try:
+        rows = []
+        for _ in range(2):
+            drv = _anakin_config("vtrace", 64, seed=3).build()
+            try:
+                assert drv.device == "cuda:0"
+                rows.append(drv.train(num_ticks=4)["metrics_rows"])
+            finally:
+                drv.stop()
+    finally:
+        rt.shutdown()
+    assert np.array_equal(rows[0], rows[1])
+    assert rows[0][-1][1] == 4 and rows[0][-1][2] == 4 * 16 * 64
+
+
+def test_rllib_learner_updates_on_the_card_match_the_cpu(dev):
+    """Every learner's update (Anakin's with both losses, PPO, DQN, SAC,
+    BC, MARWIL, CQL) at its config's default shapes on the card against
+    the CPU: losses at 1e-5 relative (atol 1e-6), each updated tensor at
+    1e-5 relative in norm (chip_smoke.rllib_hold)."""
+    from chip_smoke import rllib_hold, rllib_learner_cases
+
+    for name, run in rllib_learner_cases().items():
+        rllib_hold(name, run(dev), run(torch.device("cpu")))

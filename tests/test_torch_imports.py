@@ -1,7 +1,8 @@
 """The port stands alone: importing ray_tpu_torch (its train, air and
 serve libraries, ``llm``'s Serve deployments and batch processor, dag,
-channels, workflow, data, the multi-host modules, tune, util.collective
-and the rest of util included) and running it pulls in neither JAX nor
+channels, workflow, data, the multi-host modules, tune, util.collective,
+the rest of util and rllib with rllib.podracer included) and running it
+(an Anakin superstep and a PPO update among it) pulls in neither JAX nor
 the ray_tpu package, in the driver, in a runtime worker, in a worker a
 node agent forked, in a train worker, in a Serve replica, in the actor of
 a channel-mode compiled DAG, in a Data pool actor, in a Tune trial or in
@@ -306,6 +307,42 @@ def test_parallel_modules_import_neither_jax_nor_ray_tpu():
     ops.ulysses and the shard/gather helpers, each driven on a world of
     one CPU rank."""
     out = subprocess.run([sys.executable, "-c", _SLICE10_PROBE], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
+
+
+_RLLIB_PROBE = """
+import pickle, sys
+import torch
+import ray_tpu_torch.rllib
+import ray_tpu_torch.rllib.podracer
+from ray_tpu_torch.rllib import PPOConfig, core, ppo
+from ray_tpu_torch.rllib.podracer import PodracerConfig
+from ray_tpu_torch.rllib.podracer.anakin import AnakinWorker
+cfg = PodracerConfig().podracer(num_envs=8).env_runners(rollout_fragment_length=4).training(
+    device="cpu")
+w = AnakinWorker(pickle.dumps(cfg))
+row = w.tick(None)
+assert row[1] == 1 and row[2] == 32, row
+spec = core.MLPSpec(4, 2, (8,))
+opt, upd = ppo.make_ppo_update(PPOConfig(minibatch_size=8, num_epochs=1), spec)
+p = core.init_mlp_module(torch.Generator().manual_seed(0), spec, "cpu")
+roll = {"obs": torch.zeros(4, 2, 4), "actions": torch.zeros(4, 2, dtype=torch.long),
+        "rewards": torch.ones(4, 2), "dones": torch.zeros(4, 2), "logp": torch.zeros(4, 2),
+        "values": torch.zeros(4, 2), "final_obs": torch.zeros(2, 4)}
+p, s, m = upd(p, opt.init(p), roll, torch.randperm(8)[None])
+assert s.count == 1
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_rllib_imports_neither_jax_nor_ray_tpu():
+    """ray_tpu_torch.rllib and rllib.podracer, an Anakin superstep and a
+    PPO update run on the CPU in a fresh process."""
+    out = subprocess.run([sys.executable, "-c", _RLLIB_PROBE], cwd=_REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout

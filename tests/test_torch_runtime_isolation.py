@@ -426,3 +426,17 @@ def test_two_clusters_on_one_machine_keep_apart(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+# RLlib: the numpy-only modules copied with the renames only (there are
+# none to make in them); the other modules of rllib/ carry named edits
+# (ROADMAP.md Queue C)
+RLLIB_VERBATIM = ["rllib/replay_buffers.py", "rllib/connectors.py"]
+
+
+@pytest.mark.parametrize("name", RLLIB_VERBATIM)
+def test_copied_rllib_module_differs_from_the_reference_by_the_renames_only(name):
+    with open(os.path.join(os.path.dirname(PORT_DIR), "ray_tpu", name)) as f:
+        want = _cluster_renames(f.read())
+    with open(os.path.join(PORT_DIR, name)) as f:
+        assert f.read() == want

@@ -83,3 +83,12 @@ def test_importing_tune_records_its_usage(rt):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LIBS ['train', 'tune']" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("rt", RTS, ids=IDS)
+def test_importing_rllib_records_its_usage(rt):
+    out = subprocess.run([sys.executable, "-c", PROBE.format(repo=REPO, rt=rt.__name__,
+                                                             lib="rllib")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LIBS ['rllib']" in out.stdout, out.stdout
