@@ -5,10 +5,14 @@
 
 Runs from the root of a checkout and needs one Hopper card, ``nvcc`` and
 nothing else (``--mesh-nccl``: four cards, and it runs only the mesh
-training paths over NCCL, one rank a card, against one device, then
-Anakin over four cards and Sebulba at SLICE, each's update against one
-card's; see ``mesh_nccl_phase`` and ``rllib_nccl_phase``): it builds the
-kernels from ``ray_tpu_torch/csrc`` and then
+training paths and the op-level mesh paths over NCCL, one rank a card,
+against one device, then Anakin over four cards and Sebulba at SLICE,
+each's update against one card's; see ``mesh_nccl_phase`` and
+``rllib_nccl_phase``): it builds the kernels from ``ray_tpu_torch/csrc``,
+starts the graftlint phase beside the next phases (the port's gate,
+``python -m ray_tpu_torch.tools.graftlint ray_tpu_torch``, in a
+subprocess: it must exit 0 with no finding; printed: the files it
+checked and its seconds, before the runtime phase) and then
 
 1. kernel phases: each of the seven hand-written kernels at the main
    paths' shapes, held against its plain PyTorch version (f32 from the
@@ -179,7 +183,15 @@ kernels from ``ray_tpu_torch/csrc`` and then
    gloo ranks sharing the card at (fsdp 2, model 2), and ``mesh_ring``, 2
    gloo ranks at seq 2 with ``attention_impl="ring"`` (both at
    ``MESH_DEPTH`` layers, within ``MESH_LOSS_RTOL``; printed: launches per
-   rank, staged bytes and where each step's host time went). Then, on 2
+   rank, staged bytes and where each step's host time went). After its
+   steps ``mesh_shared`` saves its sharded state (a sharded
+   ``Checkpoint.from_torch``), takes a fourth step, and restores the
+   checkpoint with ``to_torch(target, shardings=)`` onto a mesh of
+   (fsdp 4) in the same ranks (``mesh_restore``): every restored shard
+   (parameters and both Adam moments) must equal ``shard_params`` of the
+   tree gathered at the save bit for bit, and one step there must match
+   the fourth step within ``MESH_LOSS_RTOL`` (printed: the checkpoint's
+   bytes, save and restore seconds, the restored step's ms). Then, on 2
    ranks against one rank: Ulysses and the ring at LLAMA_BENCH's heads
    (``mesh_ulysses``, ``mesh_ring_op``), 1F1B and GPipe over 2 stages of 8
    blocks (gradients against the sequential microbatches; 1F1B's peak
@@ -256,9 +268,10 @@ their ranks and summed over them: each step of ``mesh_world1`` as a
 training step; of ``mesh_shared`` per rank as a training step on its heads
 and rows (the CE over its 4 rows); of ``mesh_ring`` rank r runs the flash
 forward 2 (r + 1) times a layer and each backward kernel r + 1 times (its
-hop plan), the CE kernels on its half of the sequence; ``mesh_ulysses``
-one of each attention kernel a rank, ``mesh_ring_op`` r + 1 each,
-``mesh_expert`` none. ``--profile`` adds a
+hop plan), the CE kernels on its half of the sequence; ``mesh_restore``
+per rank as a training step on every head and a quarter of the rows;
+``mesh_ulysses`` one of each attention kernel a rank, ``mesh_ring_op``
+r + 1 each, ``mesh_expert`` none. ``--profile`` adds a
 ``torch.profiler`` breakdown of one scoring batch, of the serving run
 (whose printed times then carry the profiler's cost), of one training
 step, with the optimizer update's share of it, of one MoE training step,
@@ -2403,6 +2416,53 @@ def collective_phase(cfg, dev, smi: str) -> None:
         "bit-equal to numpy on both ranks")
 
 # ---------------------------------------------------------------------
+# graftlint phase: the port's lint gate
+# ---------------------------------------------------------------------
+
+def graftlint_start() -> dict:
+    """Starts ``python -m ray_tpu_torch.tools.graftlint ray_tpu_torch
+    --format json`` from the checkout's root in a subprocess, and a thread
+    that waits for it and stamps its end; the subprocess is killed at exit
+    if it is still running."""
+    import atexit
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch.tools.graftlint",
+                             "ray_tpu_torch", "--format", "json"], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    run = {"proc": proc, "root": root, "t0": time.perf_counter()}
+
+    def wait():
+        run["out"], run["err"] = proc.communicate()
+        run["s"] = time.perf_counter() - run["t0"]
+
+    run["thread"] = threading.Thread(target=wait, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def graftlint_phase(run: dict, smi: str, timeout_s: float = 600) -> None:
+    """The graftlint phase: the gate started by ``graftlint_start`` must
+    exit 0 with no finding (its packaged baseline is empty)."""
+    from ray_tpu_torch.tools.graftlint.core import iter_python_files
+
+    run["thread"].join(timeout_s)
+    fail_unless(not run["thread"].is_alive(), f"graftlint: still running after {timeout_s} s")
+    proc = run["proc"]
+    fail_unless(proc.returncode == 0,
+                f"graftlint: exit code {proc.returncode}: {run['out'][-2000:]}{run['err'][-2000:]}")
+    report = json.loads(run["out"])
+    fail_unless(report["findings"] == [] and report["baselined"] == 0,
+                f"graftlint: findings {report['findings'][:5]}, baselined {report['baselined']}")
+    files = sum(1 for _ in iter_python_files([os.path.join(run["root"], "ray_tpu_torch")]))
+    print(f"graftlint [{smi}]: python -m ray_tpu_torch.tools.graftlint ray_tpu_torch: exit 0, "
+          f"0 findings, 0 baselined, {files} files checked (GL001-GL018) in {run['s']:.2f} s, "
+          "beside the kernel and model phases")
+
+
+# ---------------------------------------------------------------------
 # mesh phase: the parallel layer over ranks
 # ---------------------------------------------------------------------
 
@@ -2492,13 +2552,13 @@ def _kernel_wrappers(names):
     return {n: getattr(cuda_attention, n, None) or getattr(cuda_ce, n) for n in names}
 
 
-def mesh_train_steps(mesh, cfg, tokens, steps, kernel_names):
+def mesh_train_steps(mesh, cfg, tokens, steps, kernel_names, restore=None):
     """``steps`` sharded train steps of ``cfg`` (LLAMA_BENCH, bf16) over
     ``mesh`` from the trainer phase's seeded parameters and optimizer, each
     step counted: launches (zeroed just before it), staged bytes and the
     transport's host seconds (waiting for the card before a copy out, the
     copies, the collectives' calls), host ms ending in a synchronize; and
-    the peak memory."""
+    the peak memory. With ``restore``, then ``mesh_restore`` of the state."""
     from ray_tpu_torch import parallel
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.parallel import comm
@@ -2527,8 +2587,77 @@ def mesh_train_steps(mesh, cfg, tokens, steps, kernel_names):
                      "launches": {n: w.launches for n, w in wrappers.items()},
                      "staged": comm.staging.bytes, "wait_s": comm.staging.wait_s,
                      "copy_s": comm.staging.copy_s, "comm_s": comm.staging.comm_s})
-    return {"rows": rows, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "wq": tuple(state.params["blocks"]["wq"].shape)}
+    out = {"rows": rows, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "wq": tuple(state.params["blocks"]["wq"].shape)}
+    if restore is not None:
+        out["restore"] = mesh_restore(mesh, cfg, opt, state, sh, step, batch, wrappers, restore)
+    return out
+
+
+def mesh_restore(mesh, cfg, opt, state, sh, step, batch, wrappers, p):
+    """``mesh_restore``: this rank's state saved by a sharded
+    ``Checkpoint.from_torch`` into ``p["path"]`` (the mesh's first rank
+    writes the gathered tree), the tree gathered again to the host as the
+    reference, a step of the uninterrupted run; then ``to_torch(target,
+    shardings=)`` onto a mesh of the shape ``p["mesh"]`` built in the same
+    ranks, every restored shard (parameters and both Adam moments) held
+    against ``shard_params`` of the gathered tree there, and one step on
+    the restored state, its launches counted (zeroed just before it)."""
+    from ray_tpu_torch import parallel, train
+    from ray_tpu_torch.models import gather_params, llama, shard_params
+
+    specs = llama.param_specs(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = train.Checkpoint.from_torch(state, p["path"], shardings=sh)
+    save_s = time.perf_counter() - t0
+    # host copies (a leaf no axis splits comes back as itself, which the next
+    # step updates in place)
+    saved = {k: parallel.tree_map(lambda t: t.to("cpu", copy=True),
+                                  gather_params(tree, mesh, specs))
+             for k, tree in (("params", state.params), ("mu", state.opt_state.mu),
+                             ("nu", state.opt_state.nu))}
+    _, m = step(state, batch)   # the uninterrupted run's next step
+    uninterrupted = m["loss"].item()
+    new_mesh = parallel.make_mesh(**p["mesh"])
+    new_sh, _ = parallel.state_shardings(new_mesh, specs, lambda: state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt.to_torch(target=state, shardings=new_sh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+
+    def named(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(named(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    unequal = []
+    for key, tree in (("params", restored.params), ("mu", restored.opt_state.mu),
+                      ("nu", restored.opt_state.nu)):
+        want = named(shard_params(saved[key], new_mesh, specs))
+        for name, t in named(tree).items():
+            w = want[name]
+            if not (t.dtype == w.dtype and t.is_contiguous() and torch.equal(t, w)):
+                unequal.append(f"{key}/{name}")
+    counts = (restored.step, restored.opt_state.count)
+    wq = tuple(restored.params["blocks"]["wq"].shape)
+    del saved, state
+    new_step = parallel.make_train_step(lambda q, b: llama.loss_fn(q, b, cfg), opt, new_mesh,
+                                        new_sh)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = new_step(restored, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"unequal": unequal, "loss": m["loss"].item(), "uninterrupted": uninterrupted,
+            "ms": ms, "launches": {n: w.launches for n, w in wrappers.items()},
+            "save_s": save_s, "restore_s": restore_s, "counts": counts, "wq": wq,
+            "bytes": sum(os.path.getsize(os.path.join(ckpt.path, f))
+                         for f in os.listdir(ckpt.path))}
 
 
 def _breakdown(row) -> str:
@@ -2559,7 +2688,8 @@ def mesh_train_rank(rank, world, p):
     from ray_tpu_torch import parallel
 
     mesh = parallel.make_mesh(**p["mesh"])
-    return mesh_train_steps(mesh, p["cfg"], p["tokens"], p["steps"], p["kernel_names"])
+    return mesh_train_steps(mesh, p["cfg"], p["tokens"], p["steps"], p["kernel_names"],
+                            p.get("restore"))
 
 
 def _attn_inputs(p, dev):
@@ -2577,9 +2707,10 @@ def mesh_attention_rank(rank, world, p):
     from ray_tpu_torch import parallel
     from ray_tpu_torch.ops import flash_attention, ring_attention, ulysses_attention
     from ray_tpu_torch.parallel import comm
+    from ray_tpu_torch.parallel.mesh import mesh_device
 
-    dev = torch.device("cuda", 0)
     mesh = parallel.make_mesh(seq=world)
+    dev = mesh_device(mesh)  # the card _mesh_rank_main set
     q, k, v, g = _attn_inputs(p, dev)
     wrappers = _kernel_wrappers(p["kernel_names"])
     whole = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -2602,7 +2733,8 @@ def mesh_attention_rank(rank, world, p):
                                                  gb), 3, warmup=1)
         errs = {n: row_rel_err(a, comm.local_part(r, mesh, ("seq",), 1), 0 if n == "o" else 1e-3)
                 for n, a, r in zip(("o", "dq", "dk", "dv"), (o, *grads), refs)}
-        out[op] = {"errs": errs, "launches": launches, "staged": staged, "ms": ms}
+        out[op] = {"errs": errs, "launches": launches, "staged": staged, "ms": ms,
+                   "card": dev.index}
     return out
 
 
@@ -2629,14 +2761,15 @@ def mesh_pipeline_rank(rank, world, p):
     (after a first run of each, whose first-use allocations it excludes)."""
     from ray_tpu_torch import parallel
     from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import mesh_device
 
-    dev = torch.device("cuda", 0)
+    mesh = parallel.pipe_mesh()
+    dev = mesh_device(mesh)  # the card _mesh_rank_main set
     cfg = p["cfg"]
     gen = torch.Generator(device=dev).manual_seed(0)
     blocks = llama.init_params(gen, cfg, dev)["blocks"]
     per = cfg.n_layers // world
     stacked = {k: v.reshape(world, per, *v.shape[1:]) for k, v in blocks.items()}
-    mesh = parallel.pipe_mesh()
     local = {k: v[rank:rank + 1].clone() for k, v in stacked.items()}
     B, S, mb = p["batch"]
     x = torch.randn(B, S, cfg.dim, generator=gen, device=dev).to(cfg.dtype)
@@ -2691,7 +2824,7 @@ def mesh_pipeline_rank(rank, world, p):
             errs[f"{schedule}/{k}"] = ((got - ref).norm() / ref.norm()).item()
     for schedule in out:
         del out[schedule]["grads"]
-    return {"runs": out, "errs": errs, "ref_loss": total / M}
+    return {"runs": out, "errs": errs, "ref_loss": total / M, "card": dev.index}
 
 
 def mesh_expert_rank(rank, world, p):
@@ -2702,14 +2835,15 @@ def mesh_expert_rank(rank, world, p):
     from ray_tpu_torch.models import shard_params
     from ray_tpu_torch.ops import moe as moe_ops
     from ray_tpu_torch.parallel import P
+    from ray_tpu_torch.parallel.mesh import mesh_device
 
-    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh(expert=world)
+    dev = mesh_device(mesh)  # the card _mesh_rank_main set
     mc = p["moe"]
     gen = torch.Generator(device=dev).manual_seed(0)
     full = moe_ops.init_moe_params(gen, mc, dtype=torch.float32, device=dev)
     B, S = p["tokens"]
     x = torch.randn(B, S, mc.d_model, generator=gen, device=dev)
-    mesh = parallel.make_mesh(expert=world)
     specs = {"router": P(None, None), "w_gate": P("expert", None, None),
              "w_up": P("expert", None, None), "w_down": P("expert", None, None)}
     local = shard_params(full, mesh, specs)
@@ -2721,17 +2855,106 @@ def mesh_expert_rank(rank, world, p):
         ms = (time.perf_counter() - t0) * 1e3
         ref, ref_aux = moe_ops.moe_ffn(full, x, mc)
     return {"err": row_rel_err(out, ref), "aux": aux.item(), "ref_aux": ref_aux.item(),
-            "ms": ms, "experts": tuple(local["w_gate"].shape)}
+            "ms": ms, "experts": tuple(local["w_gate"].shape), "card": dev.index}
+
+
+def mesh_op_paths(cfg, kernel_names, tag, world: int, backend: str,
+                  timeout_s: float = MESH_RANK_TIMEOUT_S) -> dict:
+    """The op-level mesh paths on ``world`` ranks (gloo ranks sharing card
+    0, or one NCCL rank a card): Ulysses and the ring op at seq ``world``
+    (LLAMA_BENCH's heads), 1F1B and GPipe over ``world`` stages of
+    LLAMA_BENCH blocks, the expert FFN at expert ``world`` (Mixtral's
+    experts), each rank held against one rank's result on its own card.
+    Returns the launches by path, summed over each path's ranks. A rank
+    that outlasts ``timeout_s`` fails the path."""
+    from ray_tpu_torch.ops import moe as moe_ops
+
+    counted = {}
+    where = (f"{world} gloo ranks on one card" if backend == "gloo"
+             else f"{world} NCCL ranks, one a card")
+    payload = {"shape": (1, 4096, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), "seed": 3,
+               "kernel_names": list(kernel_names), "backend": backend}
+    outs = run_ranks(mesh_attention_rank, world, payload, timeout_s)
+    attn = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    for op in ("ulysses", "ring_op"):
+        for r, o in enumerate(x[op] for x in outs):
+            for n, e in o["errs"].items():
+                fail_unless(math.isfinite(e) and e <= MESH_ATTN_ROW_RTOL,
+                            f"mesh_{op}: rank {r} {n} row-relative err {e} > "
+                            f"{MESH_ATTN_ROW_RTOL}")
+            hops = 1 if op == "ulysses" else r + 1  # the ring's plan: r + 1 blocks
+            fail_unless(all(o["launches"][n] == hops for n in attn),
+                        f"mesh_{op}: rank {r} launched {o['launches']}, want {hops} of each "
+                        f"attention kernel")
+            tag(f"mesh_{op} rank {r} on card {o['card']} (seq {world}, {where}; B 1, T 4096, "
+                f"H {cfg.n_heads}, KVH {cfg.n_kv_heads}, hd {cfg.head_dim}, causal): "
+                "row-relative err against one rank's flash_attention "
+                + ", ".join(f"{n} {e:.3e}" for n, e in o["errs"].items())
+                + f"; launches {o['launches']}; staged {o['staged'] / 2**20:.1f} MiB; forward "
+                f"+ backward {o['ms']:.2f} ms")
+        counted[f"mesh_{op}"] = {n: sum(x[op]["launches"][n] for x in outs)
+                                 for n in kernel_names}
+
+    pcfg = dataclasses.replace(cfg, attention_impl="flash", remat=False)
+    payload = {"cfg": pcfg, "batch": (16, 2048, 1), "kernel_names": list(kernel_names),
+               "backend": backend}
+    outs = run_ranks(mesh_pipeline_rank, world, payload, timeout_s)
+    for r, o in enumerate(outs):
+        for n, e in o["errs"].items():
+            fail_unless(math.isfinite(e) and e <= MESH_PIPE_GRAD_RTOL,
+                        f"mesh_pipeline: rank {r} {n} gradient relative err {e}")
+        one, gp = o["runs"]["1f1b"], o["runs"]["gpipe"]
+        # 1F1B: stage r holds at most 2 (world - 1 - r) + 1 inputs at once
+        most = min(one["stats"]["microbatches"], 2 * (world - 1 - r) + 1)
+        fail_unless(one["stats"]["peak_stash"] <= most,
+                    f"mesh_pipeline: 1F1B stage {r} stashed {one['stats']['peak_stash']}, "
+                    f"more than {most}")
+        tag(f"mesh_pipeline rank {r} on card {o['card']} ({world} stages of "
+            f"{pcfg.n_layers // world} LLAMA_BENCH blocks, {where}, 16 microbatches of 1 x "
+            "2048): gradient relative err against sequential "
+            + ", ".join(f"{n} {e:.3e}" for n, e in o["errs"].items() if n.startswith("1f1b"))
+            + f"; loss 1F1B {one['loss']!r} GPipe {gp['loss']!r} sequential {o['ref_loss']!r}; "
+            f"peak above the weights 1F1B {one['peak_gib']:.3f} GiB (stash "
+            f"{one['stats']['peak_stash']}) vs GPipe {gp['peak_gib']:.3f} GiB (stash "
+            f"{gp['stats']['peak_stash']}); ms 1F1B {one['ms']:.1f} GPipe {gp['ms']:.1f}; "
+            f"launches 1F1B {one['launches']}")
+    # stage 0 stashes views of its input; the later stages' stashes are memory
+    peaks = {s: sum(o["runs"][s]["peak_gib"] for o in outs) for s in ("1f1b", "gpipe")}
+    fail_unless(peaks["1f1b"] < peaks["gpipe"],
+                f"mesh_pipeline: 1F1B peak {peaks['1f1b']} GiB not below GPipe's {peaks['gpipe']}")
+    counted["mesh_pipeline"] = {n: sum(o["runs"][s]["launches"][n] for o in outs
+                                       for s in ("1f1b", "gpipe")) for n in kernel_names}
+
+    mix = moe_llama_widths()
+    payload = {"moe": moe_ops.MoEConfig(d_model=mix.dim, d_ff=mix.ffn_dim,
+                                        n_experts=mix.n_experts, k=mix.experts_per_token,
+                                        capacity_factor=mix.capacity_factor),
+               "tokens": (2, 2048), "backend": backend}
+    outs = run_ranks(mesh_expert_rank, world, payload, timeout_s)
+    for r, o in enumerate(outs):
+        fail_unless(o["err"] <= MESH_EXPERT_RTOL and o["aux"] == o["ref_aux"],
+                    f"mesh_expert: rank {r} row-relative err {o['err']}, aux {o['aux']} vs "
+                    f"{o['ref_aux']}")
+        tag(f"mesh_expert rank {r} on card {o['card']} (expert {world}, {where}; Mixtral "
+            f"experts D {mix.dim} F {mix.ffn_dim}, E {mix.n_experts} "
+            f"top-{mix.experts_per_token}, 2 x 2048 tokens, f32): holds experts "
+            f"{o['experts']}; row-relative err against one rank's moe_ffn {o['err']:.3e}; aux "
+            f"equal; {o['ms']:.2f} ms")
+    counted["mesh_expert"] = {n: 0 for n in kernel_names}
+    return counted
 
 
 def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
-    """The mesh phase: LLAMA_BENCH trained over meshes of ranks, and the
+    """The mesh phase: LLAMA_BENCH trained over meshes of ranks, its
+    sharded state saved and restored onto a mesh of another shape, and the
     sequence, pipeline and expert parallel ops on two ranks sharing the
     card, each held against one rank. Returns the launches by path, summed
     over each path's ranks."""
+    import shutil
+    import tempfile
+
     import ray_tpu_torch as rt
     from ray_tpu_torch import train
-    from ray_tpu_torch.ops import moe as moe_ops
 
     def tag(line):
         print(f"mesh [{smi}]: {line}")
@@ -2767,8 +2990,6 @@ def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
             self.rows.append(metrics)
 
     collect = Collect()
-    import tempfile
-
     rt.init(num_cpus=2)
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_world1_") as root:
@@ -2805,14 +3026,21 @@ def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
 
     # ---- mesh_shared: 4 gloo ranks sharing the card at (fsdp 2, model 2); these
     # and the ring's run at MESH_DEPTH layers (full width): their steps are the
-    # gloo transport's, 10-12 s a step at 16 layers
+    # gloo transport's, 10-12 s a step at 16 layers. Then mesh_restore: the
+    # state saved sharded, restored at (fsdp 4) in the same ranks, one step
     cut = dataclasses.replace(cfg, n_layers=MESH_DEPTH)
     here = one_device(cut)
     tcfg = dataclasses.replace(tcfg, n_layers=MESH_DEPTH)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_restore_")
+    restore_shape = {"fsdp": 4}
     payload = {"cfg": tcfg, "tokens": tokens, "steps": MESH_STEPS,
-               "kernel_names": list(kernel_names), "mesh": {"fsdp": 2, "model": 2}}
+               "kernel_names": list(kernel_names), "mesh": {"fsdp": 2, "model": 2},
+               "restore": {"path": os.path.join(ckpt_dir, "ckpt"), "mesh": restore_shape}}
     t0 = time.time()
-    outs = run_ranks(mesh_train_rank, 4, payload)
+    try:
+        outs = run_ranks(mesh_train_rank, 4, payload)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     wall = time.time() - t0
     # each rank: its heads (model 2) of every layer, its rows (fsdp 2) in the CE
     want = train_step_counts(cut, tokens[:tokens.shape[0] // 2])
@@ -2834,7 +3062,36 @@ def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
                               for n in kernel_names}
     tag(f"mesh_shared: (fsdp 2, model 2), {cut.n_layers} layers, 4 gloo ranks on one card; losses "
         f"{' '.join(repr(v) for v in losses)} against one device's, max relative err "
-        f"{max(errs):.3e}; {wall:.1f} s with the ranks' start")
+        f"{max(errs):.3e}; {wall:.1f} s with the ranks' start and mesh_restore")
+
+    # mesh_restore: each rank at (fsdp 4) holds its quarter of the rows and every head
+    want = train_step_counts(cut, tokens[:tokens.shape[0] // 4])
+    res = [o["restore"] for o in outs]
+    for r, x in enumerate(res):
+        fail_unless(not x["unequal"], f"mesh_restore: rank {r}'s restored shards differ from "
+                                      f"shard_params of the gathered tree: {x['unequal'][:8]}")
+        fail_unless(x["counts"] == (MESH_STEPS, MESH_STEPS),
+                    f"mesh_restore: rank {r} restored step and count {x['counts']}")
+        fail_unless(x["loss"] == res[0]["loss"],
+                    f"mesh_restore: rank {r}'s restored loss differs from rank 0's")
+        fail_unless(x["launches"] == want,
+                    f"mesh_restore: rank {r} launched {x['launches']}, want {want}")
+        tag(f"mesh_restore rank {r}: restored wq shard {x['wq']} at {restore_shape}, every "
+            f"shard (params, mu, nu) bit-equal to shard_params of the gathered tree; save "
+            f"{x['save_s']:.2f} s, restore {x['restore_s']:.2f} s, restored step "
+            f"{x['ms']:.1f} ms, launches {x['launches']}")
+    err = abs(res[0]["loss"] - res[0]["uninterrupted"]) / abs(res[0]["uninterrupted"])
+    fail_unless(err <= MESH_LOSS_RTOL,
+                f"mesh_restore: loss relative err {err} > {MESH_LOSS_RTOL} against the "
+                "uninterrupted run")
+    counted["mesh_restore"] = {n: sum(x["launches"][n] for x in res) for n in kernel_names}
+    tag(f"mesh_restore: a sharded Checkpoint.from_torch after step {MESH_STEPS} at (fsdp 2, "
+        f"model 2), {res[0]['bytes']} bytes, restored by to_torch(shardings=) at "
+        f"{restore_shape} in the same 4 gloo ranks; step {MESH_STEPS + 1} loss "
+        f"{res[0]['loss']!r} against the uninterrupted run's {res[0]['uninterrupted']!r}, "
+        f"relative err {err:.3e}; save {max(x['save_s'] for x in res):.2f} s, restore "
+        f"{max(x['restore_s'] for x in res):.2f} s, restored step "
+        f"{max(x['ms'] for x in res):.1f} ms (slowest rank)")
     torch.cuda.empty_cache()
 
     # ---- mesh_ring: 2 gloo ranks at seq 2, ring attention
@@ -2872,68 +3129,7 @@ def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
     torch.cuda.empty_cache()
 
     # ---- mesh_ulysses (and the ring op), mesh_pipeline, mesh_expert: op level
-    payload = {"shape": (1, 4096, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), "seed": 3,
-               "kernel_names": list(kernel_names)}
-    outs = run_ranks(mesh_attention_rank, 2, payload)
-    attn = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-    for op in ("ulysses", "ring_op"):
-        for r, o in enumerate(x[op] for x in outs):
-            for n, e in o["errs"].items():
-                fail_unless(math.isfinite(e) and e <= MESH_ATTN_ROW_RTOL,
-                            f"mesh_{op}: rank {r} {n} row-relative err {e} > "
-                            f"{MESH_ATTN_ROW_RTOL}")
-            hops = 1 if op == "ulysses" else r + 1  # the ring's plan: r + 1 blocks
-            fail_unless(all(o["launches"][n] == hops for n in attn),
-                        f"mesh_{op}: rank {r} launched {o['launches']}, want {hops} of each "
-                        f"attention kernel")
-            tag(f"mesh_{op} rank {r} (B 1, T 4096, H {cfg.n_heads}, KVH {cfg.n_kv_heads}, hd "
-                f"{cfg.head_dim}, causal): row-relative err against one rank's flash_attention "
-                + ", ".join(f"{n} {e:.3e}" for n, e in o["errs"].items())
-                + f"; launches {o['launches']}; staged {o['staged'] / 2**20:.1f} MiB; forward "
-                f"+ backward {o['ms']:.2f} ms")
-        counted[f"mesh_{op}"] = {n: sum(x[op]["launches"][n] for x in outs)
-                                 for n in kernel_names}
-
-    pcfg = dataclasses.replace(cfg, attention_impl="flash", remat=False)
-    payload = {"cfg": pcfg, "batch": (16, 2048, 1), "kernel_names": list(kernel_names)}
-    outs = run_ranks(mesh_pipeline_rank, 2, payload)
-    for r, o in enumerate(outs):
-        for n, e in o["errs"].items():
-            fail_unless(math.isfinite(e) and e <= MESH_PIPE_GRAD_RTOL,
-                        f"mesh_pipeline: rank {r} {n} gradient relative err {e}")
-        one, gp = o["runs"]["1f1b"], o["runs"]["gpipe"]
-        fail_unless(one["stats"]["peak_stash"] <= min(one["stats"]["microbatches"], 3),
-                    f"mesh_pipeline: 1F1B stashed {one['stats']['peak_stash']}")
-        tag(f"mesh_pipeline rank {r} (2 stages of {pcfg.n_layers // 2} LLAMA_BENCH blocks, 16 "
-            f"microbatches of 1 x 2048): gradient relative err against sequential "
-            + ", ".join(f"{n} {e:.3e}" for n, e in o["errs"].items() if n.startswith("1f1b"))
-            + f"; loss 1F1B {one['loss']!r} GPipe {gp['loss']!r} sequential {o['ref_loss']!r}; "
-            f"peak above the weights 1F1B {one['peak_gib']:.3f} GiB (stash "
-            f"{one['stats']['peak_stash']}) vs GPipe {gp['peak_gib']:.3f} GiB (stash "
-            f"{gp['stats']['peak_stash']}); ms 1F1B {one['ms']:.1f} GPipe {gp['ms']:.1f}; "
-            f"launches 1F1B {one['launches']}")
-    # stage 0 stashes views of its input; the later stages' stashes are memory
-    peaks = {s: sum(o["runs"][s]["peak_gib"] for o in outs) for s in ("1f1b", "gpipe")}
-    fail_unless(peaks["1f1b"] < peaks["gpipe"],
-                f"mesh_pipeline: 1F1B peak {peaks['1f1b']} GiB not below GPipe's {peaks['gpipe']}")
-    counted["mesh_pipeline"] = {n: sum(o["runs"][s]["launches"][n] for o in outs
-                                       for s in ("1f1b", "gpipe")) for n in kernel_names}
-
-    mix = moe_llama_widths()
-    payload = {"moe": moe_ops.MoEConfig(d_model=mix.dim, d_ff=mix.ffn_dim,
-                                        n_experts=mix.n_experts, k=mix.experts_per_token,
-                                        capacity_factor=mix.capacity_factor),
-               "tokens": (2, 2048)}
-    outs = run_ranks(mesh_expert_rank, 2, payload)
-    for r, o in enumerate(outs):
-        fail_unless(o["err"] <= MESH_EXPERT_RTOL and o["aux"] == o["ref_aux"],
-                    f"mesh_expert: rank {r} row-relative err {o['err']}, aux {o['aux']} vs "
-                    f"{o['ref_aux']}")
-        tag(f"mesh_expert rank {r} (Mixtral experts D {mix.dim} F {mix.ffn_dim}, E "
-            f"{mix.n_experts} top-{mix.experts_per_token}, 2 x 2048 tokens, f32): holds experts "
-            f"{o['experts']}; row-relative err against one rank's moe_ffn {o['err']:.3e}; aux "
-            f"equal; {o['ms']:.2f} ms")
-    counted["mesh_expert"] = {n: 0 for n in kernel_names}
+    counted.update(mesh_op_paths(cfg, kernel_names, tag, world=2, backend="gloo"))
     tag(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
     return counted
 
@@ -3377,7 +3573,10 @@ def mesh_nccl_phase(cfg, dev, smi: str, kernel_names) -> None:
     """``--mesh-nccl`` (four cards): LLAMA_BENCH at full width and depth over
     an NCCL group of one rank a card, at (fsdp 2, model 2) and at (seq 2,
     model 2) with ring attention, each 3 steps held to the one-device steps
-    on card 0, as ``mesh_shared`` and ``mesh_ring`` are on one card."""
+    on card 0, as ``mesh_shared`` and ``mesh_ring`` are on one card; then
+    the op-level paths (Ulysses and the ring op at seq 4, 1F1B and GPipe
+    over 4 stages of 4 blocks, the expert FFN at expert 4) over NCCL, each
+    rank on its card held against one rank's result as on one card."""
     def tag(line):
         print(f"mesh-nccl [{smi}]: {line}")
 
@@ -3425,6 +3624,10 @@ def mesh_nccl_phase(cfg, dev, smi: str, kernel_names) -> None:
         tag(f"{name}: 4 NCCL ranks, one a card, {L} layers; losses "
             f"{' '.join(repr(v) for v in losses)} against one device's, max relative err "
             f"{max(errs):.3e}; {wall:.1f} s with the ranks' start")
+    t0 = time.time()
+    counted = mesh_op_paths(cfg, kernel_names, tag, world=4, backend="nccl", timeout_s=240)
+    tag(f"op-level paths over NCCL: {time.time() - t0:.1f} s with the ranks' starts; launches "
+        f"summed over the ranks {counted}")
 
 
 def main(argv) -> int:
@@ -3485,6 +3688,9 @@ def main(argv) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": n_cards}}))
         return 0
+
+    # ---------------- graftlint phase (started here, read before the runtime phase) ----------
+    lint = graftlint_start()
 
     fa = cuda_attention.flash_attention_fwd
     ce = cuda_ce.fused_ce_fwd
@@ -3907,6 +4113,8 @@ def main(argv) -> int:
           + ", ".join(f"{k} {launches[k]['lora_serving']}" for k in kernels))
     del lora_eng, base_eng, folded, params
     torch.cuda.empty_cache()
+
+    graftlint_phase(lint, smi)
 
     # ---------------- runtime phase (main paths) ----------------
     # the actor's process has its own CUDA context: room next to this cache

@@ -3,7 +3,8 @@
 ``params_from_numpy`` turns a JAX parameter tree, given as numpy arrays
 (``jax.tree.map(np.asarray, params)``), into the port's tensors under the
 same key names; ``shard_params`` cuts such a tree into one rank's shards
-of a mesh and ``gather_params`` puts shards back together. ``load_params_npz`` reads the flat ``/``-path ``.npz``
+of a mesh and ``gather_params`` puts shards back together (``shard_tensor``
+and ``gather_tensor`` do it for one leaf). ``load_params_npz`` reads the flat ``/``-path ``.npz``
 format of ``ray_tpu/llm/config.py`` ``save_params_npz``, through the
 port's own copy of that format's ``_unflatten``.
 """
@@ -70,38 +71,43 @@ def _map_with_specs(fn, tree: Any, specs: Any) -> Any:
     return type(tree)(_map_with_specs(fn, t, s) for t, s in zip(tree, specs))
 
 
-def shard_params(params: Any, mesh, specs: Any, dtype: Optional[torch.dtype] = None) -> Any:
-    """This rank's shards of full parameters (numpy arrays, from the JAX
-    package, or tensors): each leaf cut along every dimension its spec in
-    ``specs`` names, as a contiguous tensor of its own on the mesh's device
-    (in its own dtype or ``dtype``). A dimension that its axes do not
-    divide raises."""
+def shard_tensor(leaf: Any, mesh, spec, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """This rank's shard of one full array (numpy or a tensor): cut along
+    every dimension ``spec`` names, as a contiguous tensor of its own on
+    the mesh's device (in its own dtype or ``dtype``), detached. A
+    dimension that its axes do not divide raises."""
     from ..parallel.mesh import mesh_device, shard_slice
 
-    dev = mesh_device(mesh)
+    t = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+    index = tuple(shard_slice(mesh, e, t.shape[d]) for d, e in enumerate(spec))
+    return t[index].to(device=mesh_device(mesh), dtype=dtype or t.dtype).clone().contiguous()
 
-    def cut(leaf, spec):
-        t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
-        index = tuple(shard_slice(mesh, e, t.shape[d]) for d, e in enumerate(spec))
-        return t[index].to(device=dev, dtype=dtype or t.dtype).clone().contiguous()
 
-    return _map_with_specs(cut, params, specs)
+def gather_tensor(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The full array from this rank's shard: all-gathered over every axis
+    ``spec`` names, the minor axis of a dimension first. Every rank of the
+    mesh must call it."""
+    from ..parallel.comm import all_gather
+    from ..parallel.mesh import spec_axes
+
+    t = t.detach()
+    for d, e in enumerate(spec):
+        for axis in reversed(spec_axes(e)):
+            t = all_gather(t, mesh, axis, d)
+    return t
+
+
+def shard_params(params: Any, mesh, specs: Any, dtype: Optional[torch.dtype] = None) -> Any:
+    """This rank's shards of full parameters (numpy arrays, from the JAX
+    package, or tensors): ``shard_tensor`` of each leaf with its spec in
+    ``specs``. A dimension that its axes do not divide raises."""
+    return _map_with_specs(lambda leaf, spec: shard_tensor(leaf, mesh, spec, dtype),
+                           params, specs)
 
 
 def gather_params(state: Any, mesh, specs: Any) -> Any:
     """Full parameters from this rank's shards: every leaf all-gathered over
     the axes its spec names (a TrainState gives its ``params``). Every rank
     of the mesh must call it."""
-    from ..parallel.comm import all_gather
-    from ..parallel.mesh import spec_axes
-
     params = state.params if hasattr(state, "params") and hasattr(state, "opt_state") else state
-
-    def whole(t, spec):
-        t = t.detach()
-        for d, e in enumerate(spec):
-            for axis in reversed(spec_axes(e)):  # the minor axis first
-                t = all_gather(t, mesh, axis, d)
-        return t
-
-    return _map_with_specs(whole, params, specs)
+    return _map_with_specs(lambda t, spec: gather_tensor(t, mesh, spec), params, specs)

@@ -32,7 +32,11 @@ process, and an "nccl" group's ops on the card match its plain path (f32
 rtol 1e-6, bf16 1e-2: sums over the cards in another order). RLlib: two
 same-seed Anakin runs on the card are bitwise equal, and every learner's
 update on the card matches the CPU's (losses 1e-5 relative, each updated
-tensor 1e-5 relative in norm).
+tensor 1e-5 relative in norm). Meshes: a sharded checkpoint of LLAMA_BENCH
+at 2 layers restored onto another mesh shape by 4 gloo ranks on the card
+(every shard bit-equal, the step after it within chip_smoke's
+MESH_LOSS_RTOL); with four cards, the op-level mesh paths over NCCL, one
+rank a card (skipped with fewer).
 """
 
 import dataclasses
@@ -1020,3 +1024,61 @@ def test_rllib_learner_updates_on_the_card_match_the_cpu(dev):
 
     for name, run in rllib_learner_cases().items():
         rllib_hold(name, run(dev), run(torch.device("cpu")))
+
+
+_KERNEL_NAMES = ["flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                 "fused_ce_fwd", "fused_ce_bwd_dlog", "fused_ce_bwd_dx", "fused_ce_bwd_dw"]
+
+
+def test_mesh_restore_on_the_shared_card(dev):
+    """``chip_smoke``'s mesh_restore at 2 layers of LLAMA_BENCH (bf16):
+    4 gloo ranks on the card train 2 steps at (fsdp 2, model 2), save the
+    sharded state, and restore it at (fsdp 4) in the same ranks: every
+    restored shard (parameters, both Adam moments) equals ``shard_params``
+    of the tree gathered at the save bit for bit, a step there is within
+    ``MESH_LOSS_RTOL`` of the uninterrupted run's third, and it launches
+    each kernel as a training step on a quarter of the rows."""
+    import os
+    import tempfile
+
+    import chip_smoke as cs
+
+    cfg = dataclasses.replace(llama.LLAMA_BENCH, n_layers=2, param_dtype=torch.bfloat16,
+                              remat=True, attention_impl="flash", ce_impl="fused")
+    tokens, _ = cs.bench_inputs(cfg)
+    with tempfile.TemporaryDirectory() as d:
+        outs = cs.run_ranks(cs.mesh_train_rank, 4, {
+            "cfg": cfg, "tokens": tokens, "steps": 2, "kernel_names": _KERNEL_NAMES,
+            "mesh": {"fsdp": 2, "model": 2},
+            "restore": {"path": os.path.join(d, "ckpt"), "mesh": {"fsdp": 4}}}, timeout_s=300)
+    want = cs.train_step_counts(cfg, tokens[:2])
+    for r, o in enumerate(outs):
+        x = o["restore"]
+        assert x["unequal"] == [] and x["counts"] == (2, 2), (r, x["unequal"][:4], x["counts"])
+        assert x["launches"] == want, (r, x["launches"])
+        assert x["loss"] == outs[0]["restore"]["loss"], r
+        assert x["wq"] == (2, cfg.dim // 4, cfg.n_heads, cfg.head_dim), x["wq"]
+    x = outs[0]["restore"]
+    assert abs(x["loss"] - x["uninterrupted"]) <= cs.MESH_LOSS_RTOL * abs(x["uninterrupted"])
+    assert x["bytes"] > 0
+
+
+def test_mesh_op_paths_over_nccl_one_rank_a_card(dev):
+    """``chip_smoke.mesh_op_paths`` over NCCL on four cards, one rank a
+    card, at 4 layers of LLAMA_BENCH: Ulysses and the ring op at seq 4,
+    1F1B and GPipe over 4 stages of one block, the expert FFN at expert 4
+    (Mixtral's 8 experts, 2 a rank), each rank held against one rank's
+    result under the bounds it has on one card (the function raises
+    otherwise)."""
+    import chip_smoke as cs
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    cfg = dataclasses.replace(llama.LLAMA_BENCH, n_layers=4)
+    lines = []
+    counted = cs.mesh_op_paths(cfg, _KERNEL_NAMES, lines.append, world=4, backend="nccl",
+                               timeout_s=240)
+    cards = [line for line in lines if "on card 3" in line]
+    assert len(cards) == 4, lines     # Ulysses, the ring op, the pipeline, the expert FFN
+    assert counted["mesh_ulysses"]["flash_attention_fwd"] == 4
+    assert counted["mesh_ring_op"]["flash_attention_fwd"] == 1 + 2 + 3 + 4

@@ -1,8 +1,9 @@
 """The port stands alone: importing ray_tpu_torch (its train, air and
 serve libraries, ``llm``'s Serve deployments and batch processor, dag,
 channels, workflow, data, the multi-host modules, tune, util.collective,
-the rest of util and rllib with rllib.podracer included) and running it
-(an Anakin superstep and a PPO update among it) pulls in neither JAX nor
+the rest of util, rllib with rllib.podracer, and tools.graftlint
+included) and running it (an Anakin superstep, a PPO update and a lint of
+one file among it) pulls in neither JAX nor
 the ray_tpu package, in the driver, in a runtime worker, in a worker a
 node agent forked, in a train worker, in a Serve replica, in the actor of
 a channel-mode compiled DAG, in a Data pool actor, in a Tune trial or in
@@ -343,6 +344,30 @@ def test_rllib_imports_neither_jax_nor_ray_tpu():
     """ray_tpu_torch.rllib and rllib.podracer, an Anakin superstep and a
     PPO update run on the CPU in a fresh process."""
     out = subprocess.run([sys.executable, "-c", _RLLIB_PROBE], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout
+
+
+_GRAFTLINT_PROBE = """
+import sys
+from ray_tpu_torch.tools import graftlint
+from ray_tpu_torch.tools.graftlint import __main__ as cli, project
+from ray_tpu_torch.tools.graftlint.checkers import gl017_deadline_conformance
+assert len(graftlint.all_checkers()) + len(graftlint.all_project_checkers()) == 18
+findings = graftlint.check_file("ray_tpu_torch/serve/handle.py")
+assert findings == [], findings
+assert cli.main(["ray_tpu_torch/serve/handle.py", "--no-baseline"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "ray_tpu" or m.startswith("ray_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_graftlint_imports_neither_jax_nor_ray_tpu():
+    """ray_tpu_torch.tools.graftlint, every checker loaded, run on one
+    file of the port in process and through its CLI."""
+    out = subprocess.run([sys.executable, "-c", _GRAFTLINT_PROBE], cwd=_REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "\nFOREIGN []" in "\n" + out.stdout, out.stdout

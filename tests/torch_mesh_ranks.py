@@ -194,6 +194,92 @@ def _train_run(d, run, steps):
             if "blocks" in state.params else None}
 
 
+def _leaves(tree, prefix=""):
+    """{"a/b": tensor} of a nested dict, by name (two trees may order
+    their keys differently)."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else {f"{prefix}{k}": v})
+    return out
+
+
+def case_checkpoint(rank, world, d, args):
+    """A sharded ``Checkpoint.from_torch`` of LLAMA_TINY's TrainState (f32)
+    after ``args["steps"]`` steps at ``args["save"]``, and one more step
+    of the uninterrupted run; then ``to_torch(target, shardings=)`` onto
+    each mesh shape of ``args["restores"]``, every restored shard held
+    bit for bit against ``shard_params`` of the tree gathered at the save,
+    and one step there. ``args["indivisible"]``: a shape that a spec does
+    not divide. With ``args["unsharded"]`` (a checkpoint of whole params
+    the test wrote), this rank's shards of it at ``args["save"]``."""
+    import dataclasses
+
+    from ray_tpu_torch import parallel, train
+    from ray_tpu_torch.models import convert, llama
+    from ray_tpu_torch.parallel.mesh import NamedSharding
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    full = convert.load_params_npz(os.path.join(d, "params.npz"))
+    specs = llama.param_specs(cfg)
+    opt = parallel.default_optimizer(1e-3, warmup_steps=2, total_steps=10)
+    data = np.load(os.path.join(d, "batches.npz"))
+    batches = [{"tokens": torch.from_numpy(data[str(i)])} for i in range(len(data.files))]
+
+    def loss(p, b):
+        return llama.loss_fn(p, b, cfg)
+
+    n = args["steps"]
+    mesh = parallel.make_mesh(device="cpu", **args["save"])
+    state, sh = parallel.create_train_state(
+        mesh, None, lambda _: convert.params_from_numpy(full, "cpu"), opt, specs)
+    step = parallel.make_train_step(loss, opt, mesh, sh)
+    for b in batches[:n]:
+        state, _ = step(state, b)
+    ckpt = train.Checkpoint.from_torch(state, os.path.join(d, "ckpt"), shardings=sh)
+    # copies: a leaf no axis splits comes back as itself, which the next
+    # step updates in place
+    saved = {k: parallel.tree_map(torch.clone, convert.gather_params(tree, mesh, specs))
+             for k, tree in (("params", state.params), ("mu", state.opt_state.mu),
+                             ("nu", state.opt_state.nu))}
+    _, m = step(state, batches[n])
+    out = {"uninterrupted": float(m["loss"]), "saved": {k: _flat(v) for k, v in saved.items()},
+           "restores": {}}
+    for shape in args["restores"]:
+        new_mesh = parallel.make_mesh(device="cpu", **shape)
+        new_sh, _ = parallel.state_shardings(new_mesh, specs, lambda: state)
+        restored = ckpt.to_torch(target=state, shardings=new_sh)
+        got = {"params": restored.params, "mu": restored.opt_state.mu,
+               "nu": restored.opt_state.nu}
+        leaves = {k: [(a, _leaves(convert.shard_params(saved[k], new_mesh, specs))[n])
+                      for n, a in _leaves(v).items()] for k, v in got.items()}
+        res = {"bit_equal": {k: all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+                             for k, pairs in leaves.items()},
+               "contiguous": all(a.is_contiguous() for pairs in leaves.values() for a, _ in pairs),
+               "requires_grad": [t.requires_grad for t in parallel.tree_leaves(restored.params)],
+               "counts": (restored.step, restored.opt_state.count),
+               "wq_shape": tuple(restored.params["blocks"]["wq"].shape)}
+        new_step = parallel.make_train_step(loss, opt, new_mesh, new_sh)
+        _, m = new_step(restored, batches[n])   # updates the restored leaves in place
+        out["restores"][json.dumps(shape, sort_keys=True)] = dict(res, loss=float(m["loss"]))
+    if args.get("indivisible"):
+        bad_mesh = parallel.make_mesh(device="cpu", **args["indivisible"])
+        bad_sh, _ = parallel.state_shardings(bad_mesh, specs, lambda: state)
+        try:
+            ckpt.to_torch(target=state, shardings=bad_sh)
+            out["indivisible"] = None
+        except ValueError as e:
+            out["indivisible"] = str(e)
+    if args.get("unsharded"):
+        def bind(spec_tree):
+            if isinstance(spec_tree, dict):
+                return {k: bind(v) for k, v in spec_tree.items()}
+            return NamedSharding(mesh, spec_tree)
+
+        shards = train.Checkpoint(args["unsharded"]).to_torch(shardings=bind(specs))
+        out["unsharded"] = _flat(shards)
+    return out
+
+
 def _qkv(d):
     z = np.load(os.path.join(d, "qkv.npz"))
     return {k: torch.from_numpy(z[k]) for k in z.files}
