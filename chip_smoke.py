@@ -78,7 +78,25 @@ checked and its seconds, before the runtime phase) and then
    must end at ``training_iteration`` 4 with one checkpoint kept and no
    worker process left after ``shutdown()``; printed: placement and
    first-step seconds, step ms beside this process's, checkpoint bytes,
-   save and commit seconds, restart-to-resumed seconds, ``fit()`` seconds;
+   save and commit seconds, restart-to-resumed seconds, ``fit()`` seconds.
+   Before the run storage goes, the kept checkpoint (step 2) is loaded on
+   the host and its ``.params`` written by ``Checkpoint.from_torch`` to a
+   directory of their own;
+6c'. train_to_serve phase: that directory through ``LLMConfig(
+   checkpoint_path=dir).load_params()`` onto the card: every leaf
+   bit-equal to the TrainState's (dtype included), and ``loss_fn`` with
+   flash attention and the fused CE on the trainer's batch within
+   ``TRAIN_LOSS_RTOL`` of the loss the resumed worker reported for step 3
+   (these parameters' loss on that batch); then, in its own
+   ``init(num_cpus=2)``, ``serve.run(build_llm_app(LLMConfig(..., the same
+   checkpoint_path)), route_prefix="/llm", http_options={"port": a free
+   port})``: the replica asks for ``{"num_gpus": 1.0}`` and must see the
+   driver's card by UUID with its engine there, and the 8 prompts POSTed
+   over HTTP with ``urllib`` (32 greedy tokens each) must get exactly an
+   in-process engine's tokens. Printed: checkpoint bytes, save and load
+   seconds, the leaves' equality and the loss error, ``serve.run`` and
+   first-HTTP-answer seconds, the requests' seconds and tokens/s, the
+   replica's card; after ``shutdown()`` no worker process may be left;
 6d. serve phase, in its own ``init(num_cpus=2)`` that must detect the
    card: (a) ``serve_scoring``, a deployment with ``num_gpus=1`` whose
    ``@serve.batch(max_batch_size=8)`` method takes one 2049-token row per
@@ -251,7 +269,10 @@ attention is an einsum in the reference too). The runtime paths
 (``runtime_scoring``, ``runtime_serving``) are counted in the actor's
 process, zeroed there just before the call and read just after it:
 scoring must launch the flash forward once per layer and the CE forward
-once, serving none; so must ``serve_scoring`` and ``serve_llm`` in their
+once, serving none; ``train_to_serve`` (counted in this process around
+the scoring of the loaded checkpoint) as scoring, and
+``train_to_serve_http`` (in the HTTP replica's process, around the 8
+requests) none; so must ``serve_scoring`` and ``serve_llm`` in their
 replicas' processes (zeroed and read through handle calls, and through
 ``__ray_call__`` on the OpenAI app's replica), and ``cluster_scoring`` in
 the ``LlamaActor``'s process on the agent's node; ``dag_legacy`` (6 batches) and
@@ -898,13 +919,17 @@ def train_step_counts(cfg, tokens) -> dict:
             "fused_ce_bwd_dw": ce_chunks}
 
 
-def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
+def trainer_phase(cfg, dev, smi: str, kernel_names, export_dir: str) -> tuple:
     """The trainer phase: ``LLAMA_BENCH`` trained by a one-GPU
     ``TorchTrainer`` gang that checkpoints, fails once on purpose, is
     restarted by ``FailureConfig`` and resumes from the checkpoint; every
     step's loss is held against the same steps run in this process first.
     Returns the worker's launch counts summed over the steps
-    ({"trainer": {...}}), each step's counted in the worker."""
+    ({"trainer": {...}}), each step's counted in the worker, and the
+    trained parameters handed to the train_to_serve phase
+    (``export_trained_params`` of the kept checkpoint into ``export_dir``,
+    done before the run storage is removed, with the loss that the
+    resumed worker reported for the step after it, and the batch)."""
     import shutil
     import tempfile
 
@@ -969,6 +994,8 @@ def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
             events = [json.loads(line) for line in f]
         run_dir = os.path.join(root, "runs", "llama_bench")
         kept = sorted(d for d in os.listdir(run_dir) if d.startswith("checkpoint_"))
+        fail_unless(result.checkpoint is not None, "trainer: fit() returned no checkpoint")
+        handoff = export_trained_params(result.checkpoint, export_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -998,6 +1025,12 @@ def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
                 and os.path.basename(result.checkpoint.path) == kept[0],
                 f"trainer: checkpoints kept {kept}, result's {result.checkpoint}")
     fail_unless(not left, f"trainer: worker processes left after shutdown: {left}")
+    after = collect.rows[TRAINER_CHECKPOINT_AT]
+    fail_unless(handoff["step"] == TRAINER_CHECKPOINT_AT and after["step"] == handoff["step"] + 1
+                and after["pid"] == starts[1]["pid"],
+                f"trainer: the kept checkpoint is of step {handoff['step']}, the row after it "
+                f"step {after['step']} from pid {after['pid']}")
+    handoff.update(loss=after["loss"], tokens=tokens)
     losses = [r["loss"] for r in collect.rows]
     gnorms = " ".join(f"{r['grad_norm']:.5f}" for r in collect.rows)
     errs = [abs(a - b) / abs(b) for a, b in zip(losses, here)]
@@ -1030,7 +1063,232 @@ def trainer_phase(cfg, dev, smi: str, kernel_names) -> dict:
     tag(f"fit() {fit_s:.2f} s; training_iteration {result.metrics['training_iteration']}; "
         f"launches per step in the worker {want}; {len(pids)} worker processes before "
         f"shutdown, {len(left)} after")
-    return {"trainer": counted}
+    return {"trainer": counted}, handoff
+
+
+def export_trained_params(checkpoint, path: str) -> dict:
+    """The parameters of the trainer's TrainState checkpoint, copied out of
+    its run storage: the state loaded on the host, its ``.params`` kept and
+    written with ``Checkpoint.from_torch`` into ``path``. Returns the
+    directory, the host parameters, the state's step, the file's bytes and
+    the seconds of the state's load and of the save."""
+    from ray_tpu_torch import train
+
+    t0 = time.perf_counter()
+    state = train.Checkpoint(checkpoint.path).to_torch(device="cpu")
+    state_s = time.perf_counter() - t0
+    params, step = state["params"], state["step"]
+    del state  # the Adam moments: two thirds of the 5.3 GB
+    t0 = time.perf_counter()
+    train.Checkpoint.from_torch(params, path)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return {"path": path, "params": params, "step": step, "bytes": nbytes, "save_s": save_s,
+            "state_s": state_s}
+
+
+def replica_load_s(replica) -> float:
+    """Runs in an ``LLMServer`` replica through ``__ray_call__``: the
+    seconds of one more ``load_params`` of its config onto its card, in a
+    process whose CUDA context is up, ending in a synchronize."""
+    cfg = replica.instance.config
+    t0 = time.perf_counter()
+    params = cfg.load_params(cfg.engine_kwargs.get("device"))
+    torch.cuda.synchronize()
+    del params
+    return time.perf_counter() - t0
+
+
+def _free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago (bound, released)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post_json(url: str, body: dict, timeout_s: float) -> dict:
+    """The JSON answer to a JSON POST (urllib, standard library only)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout_s) as r:
+        return json.loads(r.read())
+
+
+def train_to_serve_phase(cfg, dev, smi: str, kernel_names, handoff: dict) -> dict:
+    """The train_to_serve phase: the trainer phase's parameters, written by
+    ``Checkpoint.from_torch`` (``handoff``), loaded back through
+    ``LLMConfig(checkpoint_path=dir).load_params()`` on the card and (a)
+    scored with flash attention and the fused CE on the trainer's batch
+    (every leaf bit-equal to the TrainState's, dtype included; the loss
+    within ``TRAIN_LOSS_RTOL`` of the resumed worker's report for the step
+    after the checkpoint, whose loss is these parameters' on this batch),
+    then (b) served by ``build_llm_app`` behind Serve's HTTP ingress: the
+    8 prompts POSTed with urllib, greedy, must get an in-process engine's
+    tokens exactly. Returns the launch counts ({"train_to_serve": {...}},
+    counted in this process around the scoring, and "train_to_serve_http",
+    in the replica's process around the 8 requests)."""
+    import threading
+    import urllib.error
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import worker
+    from ray_tpu_torch.llm import GenRequest, LLMConfig, LlamaEngine, build_llm_app
+    from ray_tpu_torch.llm._internal.actor import _kernels
+    from ray_tpu_torch.llm.config import _flatten
+    from ray_tpu_torch.models import llama
+
+    def tag(line):
+        print(f"train_to_serve [{smi}]: {line}")
+
+    t_phase = time.perf_counter()
+    wrappers = {n: w for n, w in _kernels().items() if n in kernel_names}
+    want_zero = dict.fromkeys(kernel_names, 0)
+    counted = {}
+    path = handoff["path"]
+    # ---- (a) the checkpoint loaded on the card and scored ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = LLMConfig(model_config=cfg, checkpoint_path=path).load_params()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    trained, loaded = _flatten(handoff["params"]), _flatten(params)  # {"blocks/wq": ...}
+    fail_unless(list(trained) == list(loaded),
+                f"train_to_serve: leaves {list(loaded)}, the TrainState's {list(trained)}")
+    unequal = [k for k, t in trained.items()
+               if loaded[k].device != dev or loaded[k].dtype != t.dtype
+               or not torch.equal(loaded[k].cpu(), t)]
+    tag(f"checkpoint of step {handoff['step']}'s parameters: the TrainState loaded on the host "
+        f"in {handoff['state_s']:.2f} s; {handoff['bytes']} bytes, "
+        f"Checkpoint.from_torch {handoff['save_s']:.2f} s, LLMConfig.load_params onto "
+        f"{dev} {load_s:.2f} s; {len(trained) - len(unequal)} of {len(trained)} leaves "
+        f"bit-equal to the TrainState's, dtype and card included; unequal {unequal}")
+    fail_unless(not unequal, f"train_to_serve: leaves differ from the TrainState's: {unequal}")
+    fast = dataclasses.replace(cfg, attention_impl="flash", ce_impl="fused")
+    batch = {"tokens": handoff["tokens"].to(dev)}
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.inference_mode():
+        loss = llama.loss_fn(params, batch, fast).item()
+    counted["train_to_serve"] = {n: w.launches for n, w in wrappers.items()}
+    err = abs(loss - handoff["loss"]) / abs(handoff["loss"])
+    tag(f"score of the trainer's batch: loss {loss!r}, the resumed worker's step "
+        f"{handoff['step'] + 1} {handoff['loss']!r}; relative err {err:.3e}, bit-equal "
+        f"{loss == handoff['loss']}; launches {counted['train_to_serve']}")
+    fail_unless(err <= TRAIN_LOSS_RTOL,
+                f"train_to_serve: loss relative err {err} > {TRAIN_LOSS_RTOL}")
+    want = dict(want_zero, flash_attention_fwd=cfg.n_layers, fused_ce_fwd=1)
+    fail_unless(counted["train_to_serve"] == want,
+                f"train_to_serve launched {counted['train_to_serve']}, want {want}")
+    del batch
+
+    # ---- (b) served over HTTP from the same directory ----
+    _, prompts = bench_inputs(cfg)
+    engine_kwargs = {"prefill_chunk": 256}
+    llm_cfg = LLMConfig(model_config=cfg, checkpoint_path=path, max_batch_size=8,
+                        max_seq_len=1024, engine_kwargs=engine_kwargs)
+    eng = LlamaEngine(cfg, params, max_batch=8, max_seq=1024, device=dev, **engine_kwargs)
+    local = [GenRequest(request_id=str(i), prompt_ids=p, max_tokens=32)
+             for i, p in enumerate(prompts)]
+    pending = list(local)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    while pending or eng.num_active():
+        while pending and eng.has_capacity():
+            eng.add_request(pending.pop(0))
+        eng.step()
+    local_s = time.perf_counter() - t0
+    engine_counts = {n: w.launches for n, w in wrappers.items()}
+    fail_unless(engine_counts == want_zero,
+                f"train_to_serve: the in-process engine launched {engine_counts}")
+    del eng
+
+    props = torch.cuda.get_device_properties(dev)
+    app = build_llm_app(llm_cfg)
+    fail_unless(app.deployment.ray_actor_options == {"num_gpus": 1.0},
+                f"train_to_serve: the replica asks for {app.deployment.ray_actor_options}")
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}/llm"
+    rt.init(num_cpus=2)
+    try:
+        t0 = time.perf_counter()
+        serve.run(app, route_prefix="/llm", http_options={"port": port})
+        run_s = time.perf_counter() - t0
+        first, last, n404 = None, None, 0
+        while first is None and time.perf_counter() - t0 < 120:
+            try:
+                first = _post_json(url, {"prompt_ids": prompts[0], "max_tokens": 1}, 600)
+            except urllib.error.HTTPError as e:
+                if e.code != 404:  # 404: the proxy's routes refresh ~1 s after serve.run
+                    raise
+                last, n404 = e, n404 + 1
+                time.sleep(0.3)
+        fail_unless(first is not None, f"train_to_serve: no HTTP answer: {last!r}")
+        first_s = time.perf_counter() - t0
+        reps = constructions(worker.get_client(), lambda a: a["resources"].get("GPU", 0) > 0)
+        (replica,) = rt.get(rt.get_actor(serve.CONTROLLER_NAME).get_replicas.remote(
+            app.deployment.name), timeout=60)
+        where = rt.get(replica.__ray_call__.remote(replica_probe, True), timeout=60)
+        answers, latency = [None] * 8, [None] * 8
+
+        def post(i):
+            t = time.perf_counter()
+            answers[i] = _post_json(url, {"prompt_ids": prompts[i], "max_tokens": 32}, 600)
+            latency[i] = time.perf_counter() - t
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(700)
+        http_s = time.perf_counter() - t1
+        counted["train_to_serve_http"] = rt.get(
+            replica.__ray_call__.remote(replica_probe), timeout=60)["launches"]
+        warm_load_s = rt.get(replica.__ray_call__.remote(replica_load_s), timeout=300)
+        fail_unless(all(a is not None for a in answers),
+                    "train_to_serve: an HTTP request did not return")
+        same = sum(a == {"token_ids": r.generated, "num_generated": 32}
+                   for a, r in zip(answers, local))
+        tag(f"serve.run(build_llm_app(...), route_prefix=\"/llm\") {run_s:.2f} s, first "
+            f"HTTP answer {first_s:.2f} s after its start ({n404} answers 404 before it); "
+            f"replica constructions {len(reps)}, "
+            + ", ".join(f"placed after {w:.2f} s, constructor {c:.2f} s" for _, w, c in reps)
+            + f" (load_params again in the replica, its CUDA context up: {warm_load_s:.2f} s)"
+            + f"; replica pid {where['pid']}, "
+            f"num_gpus 1.0, CUDA_VISIBLE_DEVICES={where['visible']!r}, sees "
+            f"{where['count']} card(s), {where['name']} {where['uuid']}, engine on "
+            f"{where['engine_device']}; the driver's card {props.name} {props.uuid}")
+        tag(f"8 concurrent HTTP POSTs (urllib), 32 greedy tokens each, prompts "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens: {http_s:.3f} s for "
+            f"all, per request {min(latency):.3f}-{max(latency):.3f} s, {8 * 32 / http_s:.1f} "
+            f"tokens/s together; the in-process engine {local_s:.3f} s; {same} of 8 token "
+            f"lists equal the in-process engine's; launches in the replica "
+            f"{counted['train_to_serve_http']}, in the in-process engine {engine_counts}")
+        fail_unless(len(reps) == 1, f"train_to_serve: {len(reps)} replicas were constructed")
+        fail_unless(where["count"] == 1 and where["uuid"] == str(props.uuid)
+                    and str(where["engine_device"]).startswith("cuda"),
+                    "train_to_serve: the replica's engine is not on the driver's card")
+        fail_unless(same == 8, f"train_to_serve: {8 - same} of 8 HTTP answers differ: "
+                    f"{answers[0]}")
+        fail_unless(counted["train_to_serve_http"] == want_zero,
+                    f"train_to_serve_http launched {counted['train_to_serve_http']}")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    deadline = time.time() + 30
+    while _worker_pids() and time.time() < deadline:
+        time.sleep(0.1)
+    left = _worker_pids()
+    fail_unless(not left, f"train_to_serve: worker processes left after shutdown: {left}")
+    tag(f"phase {time.perf_counter() - t_phase:.1f} s (the trainer phase's export before it: "
+        f"{handoff['state_s'] + handoff['save_s']:.1f} s)")
+    return counted
 
 
 def row_losses(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -4125,9 +4383,23 @@ def main(argv) -> int:
 
     # ---------------- trainer phase (main path) ----------------
     # the worker's process has its own CUDA context: room next to this cache
-    for path, counts in trainer_phase(cfg, dev, smi, list(kernels)).items():
-        for name in kernels:
-            launches[name][path] = counts[name]
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_to_serve_") as export_dir:
+        trained, handoff = trainer_phase(cfg, dev, smi, list(kernels), export_dir)
+        for path, counts in trained.items():
+            for name in kernels:
+                launches[name][path] = counts[name]
+        torch.cuda.empty_cache()
+
+        # ---------------- train_to_serve phase (main paths) ----------------
+        # the trainer's parameters through LLMConfig.load_params, scored
+        # here and served by a replica with its own CUDA context over HTTP
+        for path, counts in train_to_serve_phase(cfg, dev, smi, list(kernels),
+                                                 handoff).items():
+            for name in kernels:
+                launches[name][path] = counts[name]
+    del handoff
     torch.cuda.empty_cache()
 
     # ---------------- serve phase (main paths) ----------------
@@ -4147,8 +4419,6 @@ def main(argv) -> int:
     # ---------------- dag, workflow and data phases (main paths) ----------------
     # each in its own runtime, held against this process's LLAMA_BENCH (the
     # same weights: LLMConfig's generator seeded 0)
-    import tempfile
-
     from ray_tpu_torch.llm import LLMConfig
 
     bench_params = LLMConfig(model_config=cfg).load_params(dev)

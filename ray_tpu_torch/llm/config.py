@@ -5,14 +5,17 @@ of ``ray_tpu/llm/config.py``.
 positional and keyword construction bind alike. ``placement_bundles()``
 is the same arithmetic; its resource key defaults to "GPU" here (the
 reference's default is "TPU"). Parameters come from a ``.npz`` in the
-flat ``/``-path format (``save_params_npz`` below, or the JAX package's)
-or from a seeded initialisation. The orbax checkpoint branch is not
-ported: it raises.
+flat ``/``-path format (``save_params_npz`` below, or the JAX package's),
+from a checkpoint directory of the Train stack (the counterpart of the
+reference's orbax branch: a parameter tree written by
+``train.Checkpoint.from_torch``, restored onto the model's tree and cast
+to its ``param_dtype``), or from a seeded initialisation.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -30,7 +33,8 @@ class LLMConfig:
     model_id: str = "base"            # name OpenAI-style bodies use for
     # the base model ({"model": model_id} routes to base, not a LoRA)
     model_config: Any = None          # a llama.LlamaConfig; None = LLAMA_TINY
-    checkpoint_path: Optional[str] = None  # .npz; None = seeded init
+    checkpoint_path: Optional[str] = None  # .npz or Checkpoint.from_torch
+    # dir; None = seeded init
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     max_batch_size: int = 8
@@ -58,18 +62,54 @@ class LLMConfig:
 
     def load_params(self, device: DeviceLike = None):
         """Materialize model params on ``device`` (the GPU unless "cpu" is
-        asked): from ``checkpoint_path`` if given, else an init seeded 0."""
+        asked): from ``checkpoint_path`` if given (a ``.npz``, or a
+        directory written by ``train.Checkpoint.from_torch(params, dir)``),
+        else an init seeded 0."""
         dev = resolve_device(device)
         cfg = self.model_config or llama.LLAMA_TINY
         if not self.checkpoint_path:
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)
             return llama.init_params(gen, cfg, dev)
-        if not self.checkpoint_path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{self.checkpoint_path}: only .npz checkpoints are ported "
-                "(orbax directories are not)")
-        return params_from_numpy(load_params_npz(self.checkpoint_path), dev)
+        if self.checkpoint_path.endswith(".npz"):
+            return params_from_numpy(load_params_npz(self.checkpoint_path), dev)
+        return _restore_dir(self.checkpoint_path, cfg, dev)
+
+
+def _restore_dir(path: str, cfg, dev: torch.device):
+    """The parameter tree that ``train.Checkpoint.from_torch(params, path)``
+    wrote, on ``dev``, in the structure and leaf shapes of
+    ``llama.init_params`` for ``cfg`` (a template on the meta device, so
+    nothing is drawn), each leaf cast to the template's dtype after the
+    load, as orbax casts to its restore target. A tree of another
+    structure and a leaf of another shape raise ValueError."""
+    from ..train._checkpoint import _TORCH_FILE, Checkpoint
+
+    ckpt = Checkpoint(path)
+    if not os.path.isfile(os.path.join(ckpt.path, _TORCH_FILE)):
+        raise FileNotFoundError(
+            f"{path}: no {_TORCH_FILE}; write the parameters with "
+            "train.Checkpoint.from_torch(params, path)")
+    template = llama.init_params(torch.Generator(), cfg, "meta")
+    try:
+        restored = ckpt.to_torch(target=template, device=dev)
+    except ValueError as e:
+        raise ValueError(
+            f"{path}: {e}; a TrainState checkpoint is not accepted: save "
+            "state.params with train.Checkpoint.from_torch(state.params, path)") from None
+    return _cast_like(template, restored, path, "")
+
+
+def _cast_like(template, restored, path: str, where: str):
+    """``restored`` with every leaf checked against the template's shape
+    and cast to its dtype (no copy where the dtype is already right)."""
+    if isinstance(template, dict):
+        return {k: _cast_like(v, restored[k], path, f"{where}.{k}") for k, v in template.items()}
+    if not isinstance(restored, torch.Tensor) or restored.shape != template.shape:
+        got = tuple(restored.shape) if isinstance(restored, torch.Tensor) else type(restored).__name__
+        raise ValueError(f"{path}: checkpoint at {where} holds {got}, the model "
+                         f"{tuple(template.shape)}")
+    return restored.to(template.dtype)
 
 
 def save_params_npz(params, path: str) -> None:

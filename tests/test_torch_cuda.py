@@ -36,7 +36,9 @@ tensor 1e-5 relative in norm). Meshes: a sharded checkpoint of LLAMA_BENCH
 at 2 layers restored onto another mesh shape by 4 gloo ranks on the card
 (every shard bit-equal, the step after it within chip_smoke's
 MESH_LOSS_RTOL); with four cards, the op-level mesh paths over NCCL, one
-rank a card (skipped with fewer).
+rank a card (skipped with fewer). A Train checkpoint directory loads
+through ``LLMConfig.load_params`` onto the card in the config's dtype,
+bit-equal to the CPU's cast, and a checkpoint of another depth raises.
 """
 
 import dataclasses
@@ -1082,3 +1084,24 @@ def test_mesh_op_paths_over_nccl_one_rank_a_card(dev):
     assert len(cards) == 4, lines     # Ulysses, the ring op, the pipeline, the expert FFN
     assert counted["mesh_ulysses"]["flash_attention_fwd"] == 4
     assert counted["mesh_ring_op"]["flash_attention_fwd"] == 1 + 2 + 3 + 4
+
+
+def test_load_params_of_a_checkpoint_dir_on_the_card(dev, tmp_path):
+    """``LLMConfig.load_params`` of a ``Checkpoint.from_torch`` directory
+    of LLAMA_TINY (f32 on the host): every leaf comes back on the card,
+    cast to a bf16 config's dtype, equal to the CPU's cast of the same
+    tensor; a 1-layer config raises ValueError naming the leaf."""
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.train import Checkpoint
+
+    params = llama.init_params(torch.Generator().manual_seed(0), llama.LLAMA_TINY, "cpu")
+    Checkpoint.from_torch(params, str(tmp_path))
+    cfg = dataclasses.replace(llama.LLAMA_TINY, param_dtype=torch.bfloat16)
+    got = LLMConfig(model_config=cfg, checkpoint_path=str(tmp_path)).load_params()
+    names = ["embed", *(f"blocks.{k}" for k in params["blocks"]), "final_norm", "lm_head"]
+    for name, want, out in zip(names, parallel.tree_leaves(params), parallel.tree_leaves(got)):
+        assert out.device.type == "cuda" and out.dtype == torch.bfloat16, (name, out.device)
+        assert torch.equal(out.cpu(), want.to(torch.bfloat16)), name
+    with pytest.raises(ValueError, match=r"\.blocks\.\w+ holds \(2, "):
+        LLMConfig(model_config=dataclasses.replace(cfg, n_layers=1),
+                  checkpoint_path=str(tmp_path)).load_params()
