@@ -1,0 +1,9 @@
+"""Share of the traced window with nothing running on the device (the
+union of kernels, copies and sets), in percent."""
+
+
+def read(run):
+    t = run["trace"]
+    if t is None or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
