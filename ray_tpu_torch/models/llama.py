@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from .._private.device import DeviceLike, resolve_device
 from ..parallel import comm
 from ..parallel.mesh import BATCH_AXES, P, axis_index, mesh_axis_size
+from ..util import tracing
 
 Params = Dict[str, Any]
 
@@ -321,11 +322,14 @@ def attention_sublayer(config: LlamaConfig, x: torch.Tensor,
 def block_fn(config: LlamaConfig, x: torch.Tensor, layer: Dict[str, torch.Tensor],
              cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
     """One transformer block. x: (B, S, D) in config.dtype. Over a mesh,
-    ``layer`` holds this rank's shards, gathered over fsdp here."""
-    if mesh is not None:
-        layer = comm.gather_layer(layer, param_specs(config)["blocks"], mesh, ("fsdp",))
-    x = attention_sublayer(config, x, layer, cos, sin, mesh)
-    return _mlp_sublayer(config, x, layer, mesh)
+    ``layer`` holds this rank's shards, gathered over fsdp here. The body
+    is a ``llama.block`` span; under remat ``checkpoint`` calls it again in
+    the backward pass, so the span also marks the recompute."""
+    with tracing.span("llama.block"):
+        if mesh is not None:
+            layer = comm.gather_layer(layer, param_specs(config)["blocks"], mesh, ("fsdp",))
+        x = attention_sublayer(config, x, layer, cos, sin, mesh)
+        return _mlp_sublayer(config, x, layer, mesh)
 
 
 def seq_split(config: LlamaConfig, mesh) -> bool:

@@ -44,6 +44,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from .._private.device import DeviceLike, resolve_device
+from ..util import tracing
 from . import comm
 from .mesh import AXIS_ORDER, NamedSharding, P, mesh_axis_size, replicated_axes, set_mesh
 
@@ -320,7 +321,13 @@ def make_train_step(loss_fn: Callable[[Params, Dict[str, torch.Tensor]], torch.T
     every rank calls the step with the same global batch: ``loss_fn`` runs
     under ``set_mesh(mesh)``, the gradients are summed over the axes each
     parameter is replicated on, and the norm is taken over every shard, so
-    loss, norm and the replicated leaves agree on every rank."""
+    loss, norm and the replicated leaves agree on every rank.
+
+    The step opens ``tracing.span``s ``train_step.forward`` (``loss_fn``),
+    ``train_step.backward`` (``torch.autograd.grad``), on a mesh
+    ``train_step.grad_sync`` (the gradients' sum and the global norm) and
+    ``train_step.update`` (the optimizer): ranges in a torch profiler's
+    trace, records for the hub under ``RAY_TPU_TORCH_TRACING``."""
     specs = _spec_list(state_sh) if mesh is not None else None
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -328,16 +335,18 @@ def make_train_step(loss_fn: Callable[[Params, Dict[str, torch.Tensor]], torch.T
         for p in leaves:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        if mesh is None:
-            loss = loss_fn(state.params, batch)
-            grads = torch.autograd.grad(loss, leaves)
-            gnorm = None
-        else:
-            with set_mesh(mesh):
+        gnorm = None
+        with set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            with tracing.span("train_step.forward"):
                 loss = loss_fn(state.params, batch)
-                grads = reduce_grads(list(torch.autograd.grad(loss, leaves)), specs, mesh)
-                gnorm = sharded_global_norm(grads, specs, mesh)
-        opt_state, gnorm = optimizer.update(grads, state.opt_state, state.params, gnorm)
+            with tracing.span("train_step.backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            if mesh is not None:
+                with tracing.span("train_step.grad_sync"):
+                    grads = reduce_grads(list(grads), specs, mesh)
+                    gnorm = sharded_global_norm(grads, specs, mesh)
+        with tracing.span("train_step.update"):
+            opt_state, gnorm = optimizer.update(grads, state.opt_state, state.params, gnorm)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm, "step": state.step + 1}
         return TrainState(state.step + 1, state.params, opt_state), metrics
 

@@ -17,6 +17,12 @@ chrome-trace ``timeline()`` as task events (cat="span").
     ctx = tracing.current_context()      # ship to another process
     # in a task:  with tracing.context(ctx), tracing.span("stage2"): ...
 
+**In the profiler's trace**: while a ``torch.profiler`` records, every
+span, with tracing on or off, is also a ``record_function`` range: a
+``user_annotation`` in the Chrome trace, on the clock of the kernels
+launched inside it. The train step (``parallel/train_step.py``) and the
+Llama block (``models/llama.py``) open such spans.
+
 **Runtime spans**: with head sampling on (``RAY_TPU_TORCH_TRACE_SAMPLE=0..1``,
 or ``RAY_TPU_TORCH_TRACING=1`` which forces 1.0), the runtime traces itself —
 trace context rides SUBMIT/actor-call/GET/PUT/object-transfer messages
@@ -43,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
+import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -177,11 +184,27 @@ def _emit(record: Dict[str, Any]) -> None:
         pass  # tracing must never take down the traced code
 
 
+def _profiler():
+    """``torch.autograd.profiler`` while a torch profiler records, else
+    None. torch is looked up in ``sys.modules``, never imported here."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
 @contextlib.contextmanager
 def span(name: str, **attrs: Any):
-    """Record a span around the block (no-op unless tracing is on)."""
+    """Record a span around the block: a record for the hub while tracing
+    is on, and a ``record_function`` range while a torch profiler records
+    (a ``user_annotation`` in its trace, on the kernels' clock, on any
+    thread the profiler follows). With neither, two flag checks and no
+    record, clock or range."""
+    prof = _profiler()
     if not _enabled:
-        yield None
+        if prof is None:
+            yield None
+        else:
+            with prof.record_function(name):
+                yield None
         return
     parent = _ctx.get()
     trace_id = parent[0] if parent else new_span_id()
@@ -190,7 +213,8 @@ def span(name: str, **attrs: Any):
     start = time.monotonic()
     error: Optional[str] = None
     try:
-        yield (trace_id, span_id)
+        with prof.record_function(name) if prof is not None else contextlib.nullcontext():
+            yield (trace_id, span_id)
     except BaseException as exc:
         error = type(exc).__name__
         raise

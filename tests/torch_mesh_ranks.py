@@ -400,6 +400,30 @@ def case_pipeline_one_microbatch(rank, world, d, args):
         return run(torch.zeros((4, 3)))
 
 
+def case_spans(rank, world, d, args):
+    """The names of the span records one train step emits on this rank
+    over ``args["mesh"]`` (tracing on, the records kept in the rank)."""
+    import dataclasses
+
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import tracing
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32, remat=True)
+    mesh = parallel.make_mesh(device="cpu", **args["mesh"])
+    opt = parallel.default_optimizer(1e-3, warmup_steps=0)
+    state, sh = parallel.create_train_state(
+        mesh, torch.Generator().manual_seed(0), lambda g: llama.init_params(g, cfg, device="cpu"),
+        opt, llama.param_specs(cfg))
+    step = parallel.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt, mesh, sh)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 17), generator=torch.Generator().manual_seed(1))
+    records = []
+    tracing._emit = records.append
+    tracing.enable()
+    step(state, {"tokens": tokens})
+    return [r["name"] for r in records]
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()
          if name.startswith("case_")}
 
