@@ -14,9 +14,9 @@ starts the graftlint phase beside the next phases (the port's gate,
 subprocess: it must exit 0 with no finding; printed: the files it
 checked and its seconds, before the runtime phase) and then
 
-1. kernel phases: each of the seven hand-written kernels at the main
-   paths' shapes, held against its plain PyTorch version (f32 from the
-   same bf16 inputs, TF32 off) and timed beside its bound, the plain
+1. kernel phases: each of the seven hand-written kernels of the model
+   at the main paths' shapes, held against its plain PyTorch version
+   (f32 from the same bf16 inputs, TF32 off) and timed beside its bound, the plain
    version and one PyTorch library call used only as a yardstick (SDPA
    and its backward, ``F.cross_entropy(x @ w)``); two runs of each
    attention kernel held bit for bit, and the two backward kernels
@@ -26,7 +26,11 @@ checked and its seconds, before the runtime phase) and then
    the whole chunked backward against its 6 N D V bound and
    ``F.cross_entropy(x @ w)``'s backward, and two runs of it held bit for
    bit; a digest of the CE kernels' outputs, so that two trees' runs show
-   whether their bits agree;
+   whether their bits agree; the one-pass AdamW kernel at the largest
+   leaf of the benchmark's Mistral cells, held bit for bit against the
+   plain loop of ops over two updates (clipped, then not), timed beside
+   its bound (28 B an element), the plain loop and the library's
+   ``torch._fused_adamw_`` (no clip; the port never calls it);
 2. scoring phase: ``LLAMA_BENCH`` (full width and depth, random weights
    from a seed, bf16) runs ``loss_fn`` with ``attention_impl="flash"``
    and ``ce_impl="fused"`` on 8 x 2049 tokens, then on a small batch the
@@ -257,15 +261,17 @@ Each kernel's launch counter is set to 0 just before each main-path run
 (the scoring batches, the engine's requests, the training steps) and read
 just after it, before any check runs; the counts go into the kernels line
 per path. The scoring path must launch the two forward kernels, the
-training path all seven (per step: the flash forward twice per layer,
+training path all eight (per step: the flash forward twice per layer,
 once more in remat's recompute, each attention backward kernel once per
 layer, the CE forward once, each CE backward kernel once per chunk of
-rows). The MoE training path launches the three attention kernels as the
-dense one does and no CE kernel (its loss is the CE on full logits, as in
-the reference), the MoE scoring path the flash forward once per layer.
+rows, the AdamW kernel once per parameter leaf). The MoE training path
+launches the three attention kernels and the AdamW kernel as the dense
+one does and no CE kernel (its loss is the CE on full logits, as in the
+reference), the MoE scoring path the flash forward once per layer.
 The serving and LoRA serving paths launch none: like the JAX engine, the
-engine's attention is the plain cached einsum; ViT has no kernel (its
-attention is an einsum in the reference too). The runtime paths
+engine's attention is the plain cached einsum; ViT's training launches
+the AdamW kernel once per leaf a step and no other (its attention is an
+einsum in the reference too). The runtime paths
 (``runtime_scoring``, ``runtime_serving``) are counted in the actor's
 process, zeroed there just before the call and read just after it:
 scoring must launch the flash forward once per layer and the CE forward
@@ -282,14 +288,15 @@ its per-batch columns, and ``data_staging`` (8) in this process must
 launch the flash forward once per layer and the CE forward once per
 batch, and ``llm_processor`` none. The ``trainer`` path is counted in the gang's
 worker, zeroed there before each step and read after it: each step must
-launch all seven kernels as a training step does; so must each step of
+launch all eight kernels as a training step does; so must each step of
 ``tune_trial`` (counted in the trial's actor) and of ``tune_trainer``
 (in the wrapped trainer's worker; 2 layers). The mesh paths are counted in
 their ranks and summed over them: each step of ``mesh_world1`` as a
 training step; of ``mesh_shared`` per rank as a training step on its heads
 and rows (the CE over its 4 rows); of ``mesh_ring`` rank r runs the flash
 forward 2 (r + 1) times a layer and each backward kernel r + 1 times (its
-hop plan), the CE kernels on its half of the sequence; ``mesh_restore``
+hop plan), the CE kernels on its half of the sequence, the AdamW kernel
+once per leaf (on every rank, on its shard); ``mesh_restore``
 per rank as a training step on every head and a quarter of the rows;
 ``mesh_ulysses`` one of each attention kernel a rank, ``mesh_ring_op``
 r + 1 each, ``mesh_expert`` none. ``--profile`` adds a
@@ -544,6 +551,67 @@ def optimizer_share(label, loss_fn, opt, state, batch):
     print(f"{label} optimizer (global norm + update): {opt_ms:.2f} ms between CUDA events "
           f"of a {step_ms:.2f} ms step ({opt_ms / step_ms:.1%})")
     return state
+
+
+# The largest leaf of the benchmark's Mistral-7B cells: w_gate (and w_up,
+# w_down), 16 layers stacked, 939,524,096 f32 elements.
+ADAMW_SHAPE = (16, 4096, 14336)
+
+
+def adamw_phase(dev, gen, peak_flops: float, peak_bw: float) -> dict:
+    """The one-pass AdamW kernel (``ops/cuda_adamw.py``) on one f32 leaf of
+    ``ADAMW_SHAPE``: two updates, the clip engaged and then not, bit-equal
+    to the plain loop of ops on a copy; then the kernel's time beside its
+    bound (g, p, mu and nu read and p, mu and nu written: 28 B an element),
+    the plain loop's and ``torch._fused_adamw_``'s over the same four
+    tensors (AdamW without the clip: a library yardstick the port never
+    calls). The global norm, a reduction before the pass, is not timed.
+    Returns the kernel's record."""
+    from ray_tpu_torch import parallel
+    from ray_tpu_torch.ops import cuda_adamw
+
+    def hp(count):
+        bc1 = 1.0 - float(torch.tensor(0.9, dtype=torch.float32) ** count)
+        bc2 = 1.0 - float(torch.tensor(0.95, dtype=torch.float32) ** count)
+        return cuda_adamw.AdamWStep(1.0, 0.9, 0.95, 1e-8, 0.1, 3e-4, bc1, bc2)
+
+    n = math.prod(ADAMW_SHAPE)
+    p = torch.randn(ADAMW_SHAPE, generator=gen, device=dev).mul_(0.02)
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    ref = [[t.clone()] for t in (p, mu, nu)]
+    max_abs_err = 0.0
+    for count, scale in ((1, 1e-3), (2, 1e-6)):      # norms ~31 (clipped) and ~0.03
+        g = torch.randn(ADAMW_SHAPE, generator=gen, device=dev).mul_(scale)
+        gnorm = parallel.global_norm([g])
+        cuda_adamw.adamw_update([g], [p], [mu], [nu], gnorm, hp(count))
+        cuda_adamw.adamw_update_plain([g], *ref, gnorm, hp(count))
+        errs = [(a - b[0]).abs().max().item() for a, b in zip((p, mu, nu), ref)]
+        max_abs_err = max(max_abs_err, *errs)
+        same = [torch.equal(a, b[0]) for a, b in zip((p, mu, nu), ref)]
+        fail_unless(all(same), f"fused_adamw: update {count} (norm {gnorm.item():.4g}) not "
+                               f"bit-equal to the plain loop (p, mu, nu: {same}; max abs "
+                               f"differences {errs})")
+    del ref
+    torch.cuda.empty_cache()
+    step = hp(3)
+    ms = time_ms(lambda: cuda_adamw.adamw_update([g], [p], [mu], [nu], gnorm, step), 20)
+    plain_ms = time_ms(lambda: cuda_adamw.adamw_update_plain([g], [p], [mu], [nu], gnorm, step),
+                       5, warmup=1)
+    steps = [torch.tensor(3.0, device=dev)]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        [p], [g], [mu], [nu], [], steps, lr=3e-4, beta1=0.9, beta2=0.95, weight_decay=0.1,
+        eps=1e-8, amsgrad=False, maximize=False), 20)
+    b_ms, b_by = bound(20.0 * n, 28.0 * n, peak_flops, peak_bw)
+    print(f"kernel fused_adamw [w_gate leaf {'x'.join(map(str, ADAMW_SHAPE))}, {n} f32]: "
+          f"bit-equal to the plain loop over 2 updates (clipped, unclipped; max abs difference "
+          f"{max_abs_err!r}); {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch._fused_adamw_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}, 28 B an element) -> {b_ms / ms:.1%} of bound; "
+          f"{28.0 * n / ms / 1e9:.3f} TB/s")
+    del p, mu, nu, g
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def _worker_pids() -> list:
@@ -829,7 +897,7 @@ def trainer_loop(config):
     worker or the trial's actor, at learning rate ``config.get("lr",
     1e-4)``.
 
-    Each step zeroes the seven launch counters of this process, runs the
+    Each step zeroes the eight launch counters of this process, runs the
     train step and reports its loss, grad norm, host-clock ms (ending in a
     synchronize) and the counts. After step ``checkpoint_at`` it reports
     ``Checkpoint.from_torch(state)``; on the first attempt only (no marker
@@ -845,7 +913,6 @@ def trainer_loop(config):
 
     from ray_tpu_torch import train
     from ray_tpu_torch._native import build
-    from ray_tpu_torch.ops import cuda_attention, cuda_ce
 
     def note(**event):
         with open(config["log"], "a") as f:
@@ -870,8 +937,7 @@ def trainer_loop(config):
         torch.cuda.synchronize()
         note(event="resumed", t=time.time(), load_s=time.perf_counter() - t0,
              from_step=state.step, path=ckpt.path)
-    wrappers = {n: getattr(cuda_attention, n, None) or getattr(cuda_ce, n)
-                for n in config["kernel_names"]}
+    wrappers = _kernel_wrappers(config["kernel_names"])
     batch = {"tokens": config["tokens"].to(dev)}
     for i in range(state.step, config["steps"]):
         if first and i + 1 == config["fail_at"]:
@@ -906,17 +972,31 @@ def trainer_loop(config):
              commit_s=commit_s)
 
 
+def _n_leaves(tree) -> int:
+    """The leaves of a nested dict (a parameter tree or its specs)."""
+    return sum(map(_n_leaves, tree.values())) if isinstance(tree, dict) else 1
+
+
+def llama_leaves(cfg) -> int:
+    """The parameter leaves of a llama ``cfg``: one AdamW launch each an
+    update (on a mesh, on each rank's shard)."""
+    from ray_tpu_torch.models import llama
+
+    return _n_leaves(llama.param_specs(cfg))
+
+
 def train_step_counts(cfg, tokens) -> dict:
     """The launches of one training step of ``cfg`` with remat on a (B, S+1)
     token batch: the flash forward twice a layer, each attention backward
     kernel once a layer, the CE forward once, each CE backward kernel once
-    a chunk of rows (``cuda_ce.chunk_rows``: a 256 MiB bf16 dlog budget)."""
+    a chunk of rows (``cuda_ce.chunk_rows``: a 256 MiB bf16 dlog budget),
+    the AdamW kernel once a parameter leaf."""
     n_rows = tokens.shape[0] * (tokens.shape[1] - 1)
     ce_chunks = -(-n_rows // (256 * 2**20 // (cfg.vocab_size * 2) // 128 * 128))
     return {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd_dkv": cfg.n_layers,
             "flash_attention_bwd_dq": cfg.n_layers, "fused_ce_fwd": 1,
             "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
-            "fused_ce_bwd_dw": ce_chunks}
+            "fused_ce_bwd_dw": ce_chunks, "fused_adamw": llama_leaves(cfg)}
 
 
 def trainer_phase(cfg, dev, smi: str, kernel_names, export_dir: str) -> tuple:
@@ -2427,7 +2507,7 @@ def tune_phase(cfg, dev, smi: str, kernel_names) -> dict:
     same grid, one trial at a time, whose gang, not its trial actor, must
     hold the card. Each trial's losses are held bit for bit against the
     same lr run in this process first, and each step, counted in the
-    process that trains, must launch all seven kernels. Returns the launch
+    process that trains, must launch all eight kernels. Returns the launch
     counts summed over the steps ({"tune_trial": ..., "tune_trainer":
     ...})."""
     import shutil
@@ -2805,9 +2885,10 @@ def run_ranks(fn, world: int, payload: dict, timeout_s: float = MESH_RANK_TIMEOU
 
 
 def _kernel_wrappers(names):
-    from ray_tpu_torch.ops import cuda_attention, cuda_ce
+    from ray_tpu_torch.llm._internal.actor import _kernels
 
-    return {n: getattr(cuda_attention, n, None) or getattr(cuda_ce, n) for n in names}
+    every = _kernels()
+    return {n: every[n] for n in names}
 
 
 def mesh_train_steps(mesh, cfg, tokens, steps, kernel_names, restore=None):
@@ -3367,7 +3448,7 @@ def mesh_phase(cfg, dev, smi: str, kernel_names) -> dict:
         want = {"flash_attention_fwd": 2 * L * hops, "flash_attention_bwd_dkv": L * hops,
                 "flash_attention_bwd_dq": L * hops, "fused_ce_fwd": 1,
                 "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
-                "fused_ce_bwd_dw": ce_chunks}
+                "fused_ce_bwd_dw": ce_chunks, "fused_adamw": llama_leaves(cut)}
         for x in o["rows"]:
             fail_unless(x["launches"] == want,
                         f"mesh_ring: rank {r} launched {x['launches']}, the hop plan {want}")
@@ -3866,7 +3947,7 @@ def mesh_nccl_phase(cfg, dev, smi: str, kernel_names) -> None:
             want = {"flash_attention_fwd": 2 * L * hops, "flash_attention_bwd_dkv": L * hops,
                     "flash_attention_bwd_dq": L * hops, "fused_ce_fwd": 1,
                     "fused_ce_bwd_dlog": chunks, "fused_ce_bwd_dx": chunks,
-                    "fused_ce_bwd_dw": chunks}
+                    "fused_ce_bwd_dw": chunks, "fused_adamw": llama_leaves(cfg)}
             fail_unless([x["loss"] for x in o["rows"]] == [x["loss"] for x in outs[0]["rows"]],
                         f"mesh-nccl {name}: rank {r}'s losses differ from rank 0's")
             for x in o["rows"]:
@@ -3903,7 +3984,7 @@ def main(argv) -> int:
     from ray_tpu_torch._native import build
     from ray_tpu_torch.llm import GenRequest, LlamaEngine, apply_lora, load_lora_adapter
     from ray_tpu_torch.models import llama, moe_llama, vit
-    from ray_tpu_torch.ops import cuda_attention, cuda_ce
+    from ray_tpu_torch.ops import cuda_adamw, cuda_attention, cuda_ce
     from ray_tpu_torch.ops import moe as moe_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3940,7 +4021,7 @@ def main(argv) -> int:
         mesh_nccl_phase(dataclasses.replace(llama.LLAMA_BENCH, param_dtype=torch.bfloat16), dev,
                         smi, ["flash_attention_fwd", "flash_attention_bwd_dkv",
                               "flash_attention_bwd_dq", "fused_ce_fwd", "fused_ce_bwd_dlog",
-                              "fused_ce_bwd_dx", "fused_ce_bwd_dw"])
+                              "fused_ce_bwd_dx", "fused_ce_bwd_dw", "fused_adamw"])
         rllib_nccl_phase(smi)
         print(f"wall [{smi}]: {time.perf_counter() - t_main:.1f} s, the kernels' build included")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3964,6 +4045,8 @@ def main(argv) -> int:
                               "ray_tpu/ops/pallas_ce.py:208"),
         "fused_ce_bwd_dx": (cuda_ce.fused_ce_bwd_dx, "fused_ce_bwd.cu", "ray_tpu/ops/pallas_ce.py:208"),
         "fused_ce_bwd_dw": (cuda_ce.fused_ce_bwd_dw, "fused_ce_bwd.cu", "ray_tpu/ops/pallas_ce.py:229"),
+        # optax's chain, which XLA fuses: no TPU kernel
+        "fused_adamw": (cuda_adamw.fused_adamw, "fused_adamw.cu", None),
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     record = {}
@@ -4187,6 +4270,7 @@ def main(argv) -> int:
                                      bound_by=by_w, library_ms=lib_w)
     del x, w, t, tl, lse, tgt, g, dx, dw, xr, wr, dlog, dxc, acc, xc, tc, lc, gc
     torch.cuda.empty_cache()
+    record["fused_adamw"] = adamw_phase(dev, gen, peak_flops, peak_bw)
 
     launches = {name: {} for name in kernels}
 
@@ -4502,7 +4586,7 @@ def main(argv) -> int:
                 "flash_attention_bwd_dkv": train_cfg.n_layers,
                 "flash_attention_bwd_dq": train_cfg.n_layers,
                 "fused_ce_fwd": 1, "fused_ce_bwd_dlog": ce_chunks, "fused_ce_bwd_dx": ce_chunks,
-                "fused_ce_bwd_dw": ce_chunks}
+                "fused_ce_bwd_dw": ce_chunks, "fused_adamw": len(leaves)}
     for name, n in per_step.items():
         fail_unless(launches[name]["training"] == n * (n_steps + 1),
                     f"training launched {name} {launches[name]['training']} times, "
@@ -4612,7 +4696,8 @@ def main(argv) -> int:
     count("moe_training")
     peak_mem = torch.cuda.max_memory_allocated()
     per_step = {"flash_attention_fwd": 2 * nl, "flash_attention_bwd_dkv": nl,
-                "flash_attention_bwd_dq": nl}
+                "flash_attention_bwd_dq": nl,
+                "fused_adamw": len(parallel.tree_leaves(mstate.params))}
     for name in kernels:
         n = per_step.get(name, 0) * (n_moe + 1)
         fail_unless(launches[name]["moe_training"] == n,
@@ -4734,8 +4819,11 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     count("vit")
+    n_adamw = len(parallel.tree_leaves(vstate.params)) * (n_vit + 1)
     for name in kernels:
-        fail_unless(launches[name]["vit"] == 0, f"ViT launched {name}")
+        n = n_adamw if name == "fused_adamw" else 0
+        fail_unless(launches[name]["vit"] == n,
+                    f"ViT launched {name} {launches[name]['vit']} times, expected {n}")
     losses = [m["loss"].item() for m in metrics]
     fail_unless(all(math.isfinite(v) for v in losses), f"ViT training loss not finite: {losses}")
     fail_unless(logits.shape == (64, vcfg.num_classes) and bool(torch.isfinite(logits).all()),
@@ -4750,7 +4838,8 @@ def main(argv) -> int:
           f"warm-up step), {ips:.1f} images/s, MFU {ips * vit_flops / peak_flops:.2%} of "
           f"{peak_flops / 1e12:.0f} TFLOP/s ({vit_flops / 1e9:.2f} GFLOP per image); peak memory "
           f"{peak_mem / 2**30:.2f} GiB; eval forward {eval_s * 1e3:.2f} ms per 64 images (median "
-          f"of 3), {64 / eval_s:.1f} images/s; launches 0")
+          f"of 3), {64 / eval_s:.1f} images/s; launches fused_adamw "
+          f"{n_adamw // (n_vit + 1)} per step, no other kernel")
     print("ViT training losses: " + " ".join(f"{v:.5f}" for v in losses))
     if profile:
         device_breakdown("ViT training (one step)", lambda: vit_step(vstate, vbatch))

@@ -74,6 +74,10 @@ SIGNATURES: Dict[str, List] = {
         _P, _P, _P, _P,                     # x, dlog, acc, dw
         _I, _I, _I, _I, _I, _P,             # rows, D, V, accumulate, last, stream
     ],
+    "rtt_fused_adamw": [
+        _P, _P, _P, _P, _P,                 # g, p, mu, nu, global norm
+        _L, _I, _P, _P,                     # n, bf16, host scalars, stream
+    ],
 }
 
 _lock = threading.Lock()

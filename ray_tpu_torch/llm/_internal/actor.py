@@ -27,7 +27,7 @@ from .engine import GenRequest, LlamaEngine, _leaves
 
 def _kernels() -> Dict[str, object]:
     """name -> wrapper carrying the ``launches`` counter, every kernel."""
-    from ...ops import cuda_attention, cuda_ce
+    from ...ops import cuda_adamw, cuda_attention, cuda_ce
 
     return {
         "flash_attention_fwd": cuda_attention.flash_attention_fwd,
@@ -37,6 +37,7 @@ def _kernels() -> Dict[str, object]:
         "fused_ce_bwd_dlog": cuda_ce.fused_ce_bwd_dlog,
         "fused_ce_bwd_dx": cuda_ce.fused_ce_bwd_dx,
         "fused_ce_bwd_dw": cuda_ce.fused_ce_bwd_dw,
+        "fused_adamw": cuda_adamw.fused_adamw,
     }
 
 

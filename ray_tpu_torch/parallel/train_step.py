@@ -16,7 +16,10 @@ plain functions on tensors (an ``init``/``update`` pair):
   a tensor, as JAX's weakly typed scalars are (b1 = 0.9 is 0.8984375 in
   bf16), and every op of the chain rounds to that dtype, a product before
   the sum it feeds, as XLA rounds them on the CPU: given the same clip
-  factor, bf16 results equal optax's bit for bit there.
+  factor, bf16 results equal optax's bit for bit there;
+- on the CPU the chain runs as that loop of ops, on a CUDA device as one
+  kernel a leaf that repeats its ops and roundings bit for bit
+  (``ops/cuda_adamw.py``).
 
 The global norm is summed in f32 (the reference sums each bf16 leaf in
 bf16).
@@ -44,6 +47,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from .._private.device import DeviceLike, resolve_device
+from ..ops import cuda_adamw
 from ..util import tracing
 from . import comm
 from .mesh import AXIS_ORDER, NamedSharding, P, mesh_axis_size, replicated_axes, set_mesh
@@ -119,11 +123,6 @@ class Optimizer(NamedTuple):
     learning_rate: Callable[[int], float]
 
 
-def _scalar(x: float, dtype: torch.dtype) -> float:
-    """x rounded to ``dtype``, as a weakly typed JAX scalar is."""
-    return torch.tensor(x, dtype=torch.float32).to(dtype).item()
-
-
 def default_optimizer(learning_rate: float = 3e-4, *, warmup_steps: int = 100,
                       total_steps: int = 10000, weight_decay: float = 0.1,
                       grad_clip: float = 1.0, b1: float = 0.9, b2: float = 0.95
@@ -145,26 +144,12 @@ def default_optimizer(learning_rate: float = 3e-4, *, warmup_steps: int = 100,
         gs, ps = tree_leaves(grads), tree_leaves(params)
         mus, nus = tree_leaves(state.mu), tree_leaves(state.nu)
         gnorm = global_norm(gs) if grad_norm is None else grad_norm
-        keep = gnorm < grad_clip
-        # optax selects t / norm * clip where the norm reaches the clip;
-        # dividing and multiplying by 1 elsewhere is exact
-        one = torch.ones((), device=gnorm.device)
         count = state.count + 1
-        # f32 bias corrections and lr, each rounded to the leaf dtype
+        # f32 bias corrections; the lr reads the count before the increment
         bc1 = 1.0 - float(torch.tensor(b1, dtype=torch.float32) ** count)
         bc2 = 1.0 - float(torch.tensor(b2, dtype=torch.float32) ** count)
-        lr = sched(state.count)
-        for g, p, mu, nu in zip(gs, ps, mus, nus):
-            dt = p.dtype
-            # optax's ops one at a time, each product rounded before its sum
-            g = (g / torch.where(keep, one, gnorm).to(dt)
-                 * torch.where(keep, one, _scalar(grad_clip, dt)).to(dt))
-            mu.mul_(_scalar(b1, dt)).add_(g * _scalar(1 - b1, dt))
-            nu.mul_(_scalar(b2, dt)).add_(g.square().mul_(_scalar(1 - b2, dt)))
-            u = mu / _scalar(bc1, dt)
-            u /= (nu / _scalar(bc2, dt)).sqrt_().add_(_scalar(eps, dt))
-            u.add_(p * _scalar(weight_decay, dt))
-            p.add_(u.mul_(_scalar(-lr, dt)))
+        cuda_adamw.adamw_update(gs, ps, mus, nus, gnorm, cuda_adamw.AdamWStep(
+            grad_clip, b1, b2, eps, weight_decay, sched(state.count), bc1, bc2))
         return AdamWState(count, state.mu, state.nu), gnorm
 
     return Optimizer(init, update, sched)

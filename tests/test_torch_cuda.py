@@ -1029,7 +1029,8 @@ def test_rllib_learner_updates_on_the_card_match_the_cpu(dev):
 
 
 _KERNEL_NAMES = ["flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-                 "fused_ce_fwd", "fused_ce_bwd_dlog", "fused_ce_bwd_dx", "fused_ce_bwd_dw"]
+                 "fused_ce_fwd", "fused_ce_bwd_dlog", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
+                 "fused_adamw"]
 
 
 def test_mesh_restore_on_the_shared_card(dev):

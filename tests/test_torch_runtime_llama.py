@@ -104,5 +104,6 @@ def test_actor_reports_its_process(actors):
     assert info["device"] == "cpu" and info["cuda_visible_devices"] == ""
     assert ray_tpu_torch.get(port.launches.remote(), timeout=T) == dict.fromkeys(
         ["flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-         "fused_ce_fwd", "fused_ce_bwd_dlog", "fused_ce_bwd_dx", "fused_ce_bwd_dw"], 0)
+         "fused_ce_fwd", "fused_ce_bwd_dlog", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
+         "fused_adamw"], 0)
     assert len(ray_tpu_torch.get(port.param_digest.remote(), timeout=T)) == 64
