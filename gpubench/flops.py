@@ -2,25 +2,23 @@
 rooflines the benchmark reports.
 
 Model FLOPs of a training token: 6 x the matmul parameters a token touches
-(the lm head in, the embedding out), plus 6 L S D for causal attention
-(forward 2 L S D: QK^T and PV over half of the S x S square each;
-backward twice that). Recompute under remat is not counted: it is the
-program's choice, not the model's work.
+plus the attention's FLOPs, both as the configuration's family counts them
+(``families/<family>.py``). Recompute under remat is not counted: it is
+the program's choice, not the model's work.
 """
 
 from __future__ import annotations
 
+from . import registry
+
 
 def matmul_params_per_token(cfg: dict) -> int:
-    D, V = cfg["hidden_size"], cfg["vocab_size"]
-    H, KVH = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd, F, L = cfg["head_dim"], cfg["intermediate_size"], cfg["num_hidden_layers"]
-    attn = D * H * hd + 2 * D * KVH * hd + H * hd * D
-    return L * (attn + 3 * D * F) + D * V
+    return registry.family(cfg["program"]["family"]).matmul_params_per_token(cfg)
 
 
 def train_flops_per_token(cfg: dict, seq_len: int) -> float:
-    return 6.0 * matmul_params_per_token(cfg) + 6.0 * cfg["num_hidden_layers"] * seq_len * cfg["hidden_size"]
+    fam = registry.family(cfg["program"]["family"])
+    return 6.0 * fam.matmul_params_per_token(cfg) + fam.attention_flops_per_token(cfg, seq_len)
 
 
 def attention_call(batch: int, heads: int, seq_len: int, head_dim: int, kv_heads: int,

@@ -7,19 +7,20 @@ trainer runs: it starts ``ray_tpu_torch``'s runtime
 with its session and object store under ``$TMPDIR`` (a run needs one, of
 at most RUNTIME_BASE_MAX characters, else it uses ``build/rt`` in the
 checkout, else it stops), checks that the runtime finds the cell's cards,
-and fits a ``TorchTrainer`` (one GPU worker a card) whose loop is
-``loop.train_loop``; the loop stops where torch sees no card. When the
-runtime is down and its worker processes have ended (the program's state
-freed with them), the driver imports torch, stops where torch sees fewer
-cards than the cell asks for, and runs the reference on the
-card, compares (``check.py``), reads every metric the cell reports
+and fits a ``TorchTrainer`` (one GPU worker a card, a process group over
+NCCL, and the workload's ``mesh`` as ``TorchConfig.mesh_shape``) whose
+loop is ``loop.train_loop``; the loop stops where torch sees no card. When
+the runtime is down and its worker processes have ended (the program's
+state freed with them), this process imports torch, stops where torch sees
+fewer cards than the cell asks for, and runs the reference on the cell's
+cards, compares (``check.py``), reads every metric the cell reports
 (``metrics/<name>.py``) and prints the numbers compared, each beside its
 limit, as the last lines of standard error, and the result as the last
 line of standard output.
 
 ``--device cpu`` (tests only) skips the look for a card and runs the
-same path on the CPU; ``--fault`` plants a fault in the timed path that
-the comparison must catch.
+same path on the CPU (a mesh over gloo); ``--fault`` plants a fault in the
+timed path that the comparison must catch.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import sys
 import tempfile
 import time
 
-from . import BANNED_MODULES, check, peaks, registry
+from . import banned_loaded, check, peaks, registry
 
 RUNTIME_BASE_MAX = 64   # + "/ray_tpu_torch_<8 hex>/object_agent.sock" < 108 bytes
 
@@ -110,7 +111,7 @@ def parse(argv):
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--fault", choices=("unchanged", "half", "ascent"), default=None)
+    ap.add_argument("--fault", choices=("unchanged", "half", "ascent", "noexchange"), default=None)
     return ap.parse_args(argv)
 
 
@@ -119,14 +120,14 @@ class NoCards(Exception):
 
 
 def fit(loop_config: dict, chips: int, on_gpu: bool, storage: str):
-    """(the loop's record, the wall time ``fit()`` was called) from one
-    TorchTrainer fit."""
+    """(rank 0's record of the loop, the wall time ``fit()`` was called)
+    from one TorchTrainer fit over ``chips`` workers."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import train
 
     from .loop import train_loop
 
-    rt.init(num_cpus=2)
+    rt.init(num_cpus=max(2, chips))
     try:
         found = int(rt.cluster_resources().get("GPU", 0))
         if on_gpu and found < chips:
@@ -134,7 +135,8 @@ def fit(loop_config: dict, chips: int, on_gpu: bool, storage: str):
         trainer = train.TorchTrainer(
             train_loop, train_loop_config=loop_config,
             scaling_config=train.ScalingConfig(num_workers=chips, use_gpu=on_gpu),
-            torch_config=None if on_gpu else train.TorchConfig(backend="gloo"),
+            torch_config=train.TorchConfig(backend=None if on_gpu else "gloo",
+                                           mesh_shape=loop_config["mesh"]),
             run_config=train.RunConfig(name="gpubench", storage_path=storage))
         t_fit = time.time()
         result = trainer.fit()
@@ -153,7 +155,11 @@ def main(argv) -> int:
     cfg, traffic = registry.config(cell["config"]), registry.traffic(cell["traffic"])
     limits = registry.limits(args.workload)
     bench = registry.benchmark()
-    chips = cell["chips"]
+    chips, mesh = cell["chips"], cell.get("mesh")
+    if chips != (math.prod(mesh.values()) if mesh else 1):
+        print(f"gpubench: {args.workload} runs on {chips} cards and needs a mesh of as many "
+              f"ranks, not {mesh}", file=sys.stderr)
+        return 2
     on_gpu = args.device == "cuda"
     t_main = time.time()
     # the runtime's session (its sockets' paths must stay under 108 bytes)
@@ -173,7 +179,7 @@ def main(argv) -> int:
     os.environ["USE_FLAX"] = "0"
     try:
         per_layer = registry.cell_metrics(bench, args.workload, trace=True)
-        loop_config = {"config": cfg, "traffic": traffic, "seed": args.seed,
+        loop_config = {"config": cfg, "traffic": traffic, "seed": args.seed, "mesh": mesh,
                        "seconds": args.seconds, "trace": bool(args.trace), "fault": args.fault,
                        "device": args.device, "tmp": tmp, "per_layer": per_layer}
         t_runtime = time.time()
@@ -194,7 +200,8 @@ def main(argv) -> int:
 
         dev = torch.device("cuda", 0) if on_gpu else torch.device("cpu")
         t_ref = time.time()
-        ref = reference.run(cfg, traffic, args.seed, dev)
+        ref = reference.run(cfg, traffic, args.seed, dev, ranks=chips,
+                            pins=record["readings"].get("pins"), workdir=tmp)
         t_end = time.time()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -206,7 +213,9 @@ def main(argv) -> int:
     win = record["window"]
     correct = all(c["ok"] for c in checks.values()) and win["failed"] == 0
     trainer_start_s = record["t_start"] - t_fit
+    dp = math.prod((mesh or {}).get(a, 1) for a in ("data", "fsdp"))
     run = {"cell": args.workload, "config": cfg, "traffic": traffic, "kind": record["kind"],
+           "chips": chips, "batch_per_rank": traffic["batch"] // dp,
            "peaks": peaks.of(record["kind"]), "setup_s": record["t_window"] - t_process,
            "trainer_start_s": trainer_start_s, "window": win, "trace": record["trace"],
            "probes": record["probes"]}
@@ -221,13 +230,12 @@ def main(argv) -> int:
             "metrics": metrics, "device": device}
     if args.trace and record["trace"] is not None:
         t = record["trace"]
-        device.update(busy_s=t["busy_s"], window_s=t["window_s"])
+        device.update(busy_s=record["busy_s"], window_s=t["window_s"])
         line["breakdown"] = {"device_ops": t["device_ops"], "idle_gaps": t["idle_gaps"]}
     line["checks"] = {n: {"value": c["value"] if math.isfinite(c["value"]) else None,
                           "limit": c["limit"]} for n, c in checks.items()}
 
-    banned = sorted(set(record["banned"]) | {m for m in sys.modules
-                                             if m.split(".")[0] in BANNED_MODULES})
+    banned = sorted(set(record["banned"]) | set(banned_loaded()))
     if banned:
         print(f"gpubench: modules that no run may load were loaded: {banned}", file=sys.stderr)
         return 3
@@ -250,7 +258,8 @@ def main(argv) -> int:
     if record["trace"] is not None:
         t = record["trace"]
         print(f"trace: kernels linked {t['linked']}, ops {t['ops']}, gemm {t['gemm_s']:.4f} s "
-              f"of {t['kernel_s']:.4f} s", file=sys.stderr)
+              f"of {t['kernel_s']:.4f} s; NCCL {t['nccl_kernel_s']:.4f} s, exposed "
+              f"{t['nccl_exposed_s']:.4f} s, by kernel {t['nccl_ops']}", file=sys.stderr)
     for n in check.NAMES:
         if n in checks:
             c = checks[n]

@@ -1,4 +1,4 @@
-"""The train loop the cell's ``TorchTrainer`` runs on its worker, written
+"""The train loop the cell's ``TorchTrainer`` runs on each worker, written
 as a user writes one: build the state and the step, run the steps,
 ``train.report`` the loss after each.
 
@@ -10,16 +10,27 @@ steps until ``seconds`` have passed and ends on a synchronize; with
 ``trace`` it runs under ``torch.profiler`` and the trace is reduced in
 this process (``trace.py``), after which each per-layer metric's probe,
 if it has one, runs. The last report carries the record the driver reads.
+
+A cell laid over a mesh runs one worker a card, each a rank of the
+workers' process group: ``parallel.make_mesh()`` takes the shape that
+``TorchConfig.mesh_shape`` gave the workers, and every rank runs the same
+steps on the global batch. The ranks agree after each window step whether
+the window is over, so every rank runs as many steps; they agree over a
+gloo group of the harness's own, on the host, so that no kernel of the
+harness runs on the cards in the window (its collectives would be counted
+as the program's). Rank 0's record is the run's: its clocks, its trace and
+its probes; the peak memory is the largest of the ranks', the device's
+busy time their mean, and the modules that no run may load are every
+rank's.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import sys
 import time
 
-from . import BANNED_MODULES
+from . import banned_loaded
 
 WINDOW = "gpubench.window"
 
@@ -27,8 +38,9 @@ WINDOW = "gpubench.window"
 def train_loop(config: dict) -> None:
     t_start = time.time()
     import torch
+    import torch.distributed as dist
 
-    from ray_tpu_torch import train
+    from ray_tpu_torch import parallel, train
 
     from . import program, registry, trace
     from . import traffic as traffic_gen
@@ -39,6 +51,19 @@ def train_loop(config: dict) -> None:
     if on_gpu and not torch.cuda.is_available():
         raise RuntimeError("the trainer's worker sees no CUDA card")
     dev = torch.device("cuda", 0) if on_gpu else torch.device("cpu")
+    mesh = parallel.make_mesh(device=dev) if config["mesh"] else None
+    rank = dist.get_rank() if mesh is not None else 0
+    # the harness's own agreements, on the host: never a kernel on the card
+    host_group = dist.new_group(backend="gloo") if mesh is not None else None
+
+    def over_ranks(value: float, op) -> float:
+        """``value`` reduced by ``op`` over the ranks (itself without a mesh)."""
+        if host_group is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64)
+        dist.all_reduce(t, op=op, group=host_group)
+        return float(t.item())
+
     build_s = 0.0
     if on_gpu:
         from ray_tpu_torch._native import build
@@ -46,11 +71,11 @@ def train_loop(config: dict) -> None:
         build.library()
         build_s = build.build_seconds
     t_library = time.time()
-    state, step = program.setup(cfg, traffic, seed, dev, config["fault"])
+    state, step = program.setup(cfg, traffic, seed, dev, config["fault"], mesh)
     t_state = time.time()
     state, readings = program.first_steps(
         state, step, cfg, traffic, seed, dev, config["fault"],
-        on_step=lambda k, loss: train.report({"loss": loss, "phase": "first_steps"}))
+        on_step=lambda k, loss: train.report({"loss": loss, "phase": "first_steps"}), mesh=mesh)
 
     sync = torch.cuda.synchronize if on_gpu else (lambda: None)
     sync()
@@ -74,11 +99,13 @@ def train_loop(config: dict) -> None:
             loss = m["loss"].item()
             losses.append(loss)
             train.report({"loss": loss, "phase": "window"})
-            if time.perf_counter() - t0 >= config["seconds"]:
+            done = float(time.perf_counter() - t0 >= config["seconds"])
+            if over_ranks(done, dist.ReduceOp.MAX):
                 break
         sync()
     window_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if on_gpu else 0
+    peak = int(over_ranks(float(peak), dist.ReduceOp.MAX))
     record = {
         "t_start": t_start, "t_imported": t_imported, "t_library": t_library, "t_state": t_state, "t_window": t_window,
         "build_s": build_s,
@@ -99,9 +126,16 @@ def train_loop(config: dict) -> None:
             record["trace"] = trace.summarize(path, WINDOW, ops)
         finally:
             os.remove(path)
-        ctx = {"state": state, "config": cfg, "traffic": traffic, "seed": seed, "device": dev}
+        world = dist.get_world_size() if mesh is not None else 1
+        record["busy_s"] = over_ranks(record["trace"]["busy_s"], dist.ReduceOp.SUM) / world
+        ctx = {"state": state, "step": step, "config": cfg, "traffic": traffic, "seed": seed,
+               "device": dev, "rank": rank}
         for r in readers:
             if hasattr(r, "probe"):
                 record["probes"].update(r.probe(ctx))
-    record["banned"] = sorted(m for m in sys.modules if m.split(".")[0] in BANNED_MODULES)
-    train.report({"gpubench": record})
+    banned = [banned_loaded()]
+    if host_group is not None:
+        banned = [None] * dist.get_world_size()
+        dist.all_gather_object(banned, banned_loaded(), group=host_group)
+    record["banned"] = sorted({m for ms in banned for m in ms})
+    train.report({"gpubench": record if rank == 0 else {"rank": rank}})

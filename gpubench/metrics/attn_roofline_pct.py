@@ -1,8 +1,9 @@
 """The attention op's share of its roofline: each forward and backward
 call of ``_FlashAttention`` in the traced window is credited with the
-causal work of that call at the cell's shapes (``flops.attention_call``);
-its least time, max(FLOPs / bf16 peak, bytes / HBM peak), summed over the
-calls, over the device time of the kernels launched under those calls."""
+causal work of that call at the cell's shapes and a rank's rows
+(``flops.attention_call``); its least time, max(FLOPs / bf16 peak, bytes /
+HBM peak), summed over the calls, over the device time of the kernels
+launched under those calls."""
 
 from gpubench import flops
 
@@ -18,7 +19,7 @@ def read(run):
     if seconds <= 0:
         return None
     c, tr = run["config"], run["traffic"]
-    shape = (tr["batch"], c["num_attention_heads"], tr["seq_len"], c["head_dim"],
+    shape = (run["batch_per_rank"], c["num_attention_heads"], tr["seq_len"], c["head_dim"],
              c["num_key_value_heads"])
     least = 0.0
     for calls, backward in ((op["calls"], False), (op["backward_calls"], True)):

@@ -1,6 +1,6 @@
 """The fused lm-head cross entropy's share of its roofline: each forward
 and backward call of ``_FusedCrossEntropy`` in the traced window is
-credited with 2 N D V (forward) or 4 N D V (backward) at the cell's rows
+credited with 2 N D V (forward) or 4 N D V (backward) at a rank's rows
 (``flops.ce_call``); its least time, max(FLOPs / bf16 peak, bytes / HBM
 peak), over the device time of the kernels launched under those calls."""
 
@@ -18,7 +18,7 @@ def read(run):
     if seconds <= 0:
         return None
     c, tr = run["config"], run["traffic"]
-    rows = tr["batch"] * tr["seq_len"]
+    rows = run["batch_per_rank"] * tr["seq_len"]
     least = 0.0
     for calls, backward in ((op["calls"], False), (op["backward_calls"], True)):
         f, b = flops.ce_call(rows, c["hidden_size"], c["vocab_size"], backward=backward)

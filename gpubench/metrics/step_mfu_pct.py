@@ -1,5 +1,6 @@
 """Model FLOPs of the window's tokens (``flops.train_flops_per_token``)
-over the window's seconds and the card's bf16 peak, in percent."""
+over the window's seconds and the bf16 peak of the cell's cards summed, in
+percent."""
 
 from gpubench import flops
 
@@ -10,4 +11,4 @@ def read(run):
         return None
     w, t = run["window"], run["traffic"]
     done = flops.train_flops_per_token(run["config"], t["seq_len"]) * w["tokens"]
-    return 100.0 * done / w["seconds"] / peak["bf16_flops"]
+    return 100.0 * done / w["seconds"] / (peak["bf16_flops"] * run["chips"])

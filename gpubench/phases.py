@@ -7,8 +7,9 @@ and ``train_step.grad_sync`` over a mesh) and around each model block
 ``user_annotation`` range in the Chrome trace, on the kernels' clock.
 
 ``probe`` runs in the worker after a traced window: it profiles ``STEPS``
-more steps of the same state, as the window runs them (batch, step, loss
-read back), and reduces that trace with ``reduce``. The readers
+more steps of the same state through the window's step, as the window
+runs them (batch, step, loss read back), and reduces that trace with
+``reduce``. The readers
 ``forward_ms_per_step``, ``backward_ms_per_step``,
 ``recompute_ms_per_step`` and ``optimizer_ms_per_step`` read the result;
 where the program opens no such span, they read nothing.
@@ -48,12 +49,7 @@ class _Ranges:
     """The union of some host ranges, for whether a time falls inside."""
 
     def __init__(self, ranges: List[Tuple[float, float]]):
-        merged: List[List[float]] = []
-        for a, b in sorted(ranges):
-            if merged and a <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], b)
-            else:
-                merged.append([a, b])
+        merged = trace.union(ranges)
         self.starts = [a for a, _ in merged]
         self.ends = [b for _, b in merged]
 
@@ -151,39 +147,44 @@ def reduce(path: str) -> Dict[str, object]:
 
 
 def probe(ctx: dict) -> dict:
-    """``{"phases": ...}``: ``reduce`` over ``STEPS`` steps profiled after
-    the window, with ``steps``. Once a run: each reader has this probe."""
+    """``{"phases": ...}``: ``reduce`` over ``STEPS`` steps of the window's
+    own step, profiled after the window, with ``steps``. Once a run: each
+    reader has this probe. Over a mesh every rank runs the steps (their
+    collectives need every rank) and rank 0 profiles them; the others
+    give nothing."""
     if ctx.get(_DONE):
         return {}
     ctx[_DONE] = True
     import torch
 
-    from ray_tpu_torch import parallel
-
-    from . import program
     from . import traffic as traffic_gen
 
     cfg, traffic, seed, dev = ctx["config"], ctx["traffic"], ctx["seed"], ctx["device"]
-    mcfg, loss_fn = program.model_config(cfg)
-    step = parallel.make_train_step(lambda p, b: loss_fn(p, b, mcfg),
-                                    parallel.default_optimizer(**traffic["optimizer"]))
-    state = ctx["state"]
+    step, state = ctx["step"], ctx["state"]
     on_gpu = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+
+    def steps():
+        nonlocal state
+        with torch.profiler.record_function(WINDOW):
+            for k in range(state.step + 1, state.step + 1 + STEPS):
+                batch = traffic_gen.batch(traffic, cfg["vocab_size"], seed, k, dev)
+                state, m = step(state, batch)
+                m["loss"].item()
+            sync()
+
+    sync()
+    if ctx.get("rank", 0) != 0:
+        steps()
+        return {}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_gpu:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     fd, path = tempfile.mkstemp(prefix="gpubench-phases-", suffix=".json")
     os.close(fd)
     try:
-        sync()
         with torch.profiler.profile(activities=acts) as prof:
-            with torch.profiler.record_function(WINDOW):
-                for k in range(state.step + 1, state.step + 1 + STEPS):
-                    batch = traffic_gen.batch(traffic, cfg["vocab_size"], seed, k, dev)
-                    state, m = step(state, batch)
-                    m["loss"].item()
-                sync()
+            steps()
         prof.export_chrome_trace(path)
         out = reduce(path)
     finally:

@@ -2,18 +2,10 @@
 
 It imports nothing of the program. From the seed it makes the same
 weights (``weights.py``) and batches (``traffic.py``) the program is
-given, and works out the first ``check_steps`` steps itself:
+given, and works out the first ``check_steps`` steps itself: the loss and
+gradients of the configuration's model from its family's ``Model``
+(``families/<family>.py``), then what every family shares, here:
 
-- the model as the configuration publishes it: token embedding, per layer
-  RMSNorm, grouped-query causal attention with rotary embeddings (the two
-  halves of each head rotated, angles in float32 as the published
-  implementation computes them), the output projection, RMSNorm and a
-  SwiGLU MLP; then the final RMSNorm, the lm head and the mean next-token
-  cross entropy;
-- gradients by hand, layer by layer: the forward keeps each layer's input,
-  the backward runs the layer again under autograd, so the memory holds
-  one layer's work at a time; attention and the cross entropy walk blocks
-  of rows (``_CausalAttention``, ``_ChunkedCE``);
 - clip by global norm, then AdamW (optax's formulas, bias-corrected, the
   weight decay added to the Adam direction, a warmup-cosine schedule read
   before the count is incremented); the moments live on the host between
@@ -22,16 +14,31 @@ given, and works out the first ``check_steps`` steps itself:
 Every product is float32 with TF32 off. ``Numerics(fp8=True)`` rounds both
 operands of every product (forward and backward) to float8 e4m3 with one
 scale per tensor: the control, one precision below the program's bf16.
+
+A cell laid over several cards is worked out over as many cards, in
+processes of the reference's own (``run(..., ranks=n)``, one process a
+card, a process group of their own): each holds the whole tree and takes
+its share of the batch's rows one sequence at a time, the gradient of each
+sequence's loss added into one tree; the ranks' trees are summed before
+the clip. Each rank updates its share of the leaves' layers, their
+moments on its host, and sends them to the others.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Dict
+import os
+import socket
+import subprocess
+import sys
+import time
+from typing import Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
+import torch.distributed as dist
 
+from . import banned_loaded, registry
 from . import traffic as traffic_gen
 from . import weights
 
@@ -74,212 +81,6 @@ class Numerics:
         return _MatmulFP8.apply(a, b) if self.fp8 else a @ b
 
 
-def _block_rows(heads: int, seq_len: int) -> int:
-    """Query rows per attention block: the scores of a block (heads x rows
-    x keys, float32) stay under 2 GiB."""
-    rows = seq_len
-    while rows > 64 and heads * rows * seq_len > 2 ** 29:
-        rows //= 2
-    return rows
-
-
-class _CausalAttention(torch.autograd.Function):
-    """Causal GQA attention on q (B, S, H, hd), k/v (B, S, KVH, hd), a
-    block of query rows at a time against the keys it sees; the backward
-    forms each block's probabilities again from the saved log-sum-exp."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, num):
-        B, S, H, hd = q.shape
-        KVH = k.shape[2]
-        G = H // KVH
-        n = _block_rows(H, S)
-        scale = 1.0 / math.sqrt(hd)
-        o = torch.empty_like(q)
-        lse = torch.empty((B, KVH, G, S), dtype=torch.float32, device=q.device)
-        for b in range(B):
-            kh, vh = k[b].transpose(0, 1), v[b].transpose(0, 1)          # (KVH, S, hd)
-            for s0 in range(0, S, n):
-                s1 = min(s0 + n, S)
-                qb = _q_block(q, b, s0, s1, KVH, G)                       # (KVH, G*m, hd)
-                sc = _scores(qb, kh[:, :s1], num, scale, G, s0, s1)       # (KVH, G*m, s1)
-                l = torch.logsumexp(sc, dim=-1)
-                p = sc.sub_(l[..., None]).exp_()
-                ob = torch.bmm(num.q(p), num.q(vh[:, :s1]))               # (KVH, G*m, hd)
-                o[b, s0:s1] = ob.view(KVH, G, s1 - s0, hd).permute(2, 0, 1, 3).reshape(
-                    s1 - s0, H, hd)
-                lse[b, :, :, s0:s1] = l.view(KVH, G, s1 - s0)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.num = num
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        num = ctx.num
-        B, S, H, hd = q.shape
-        KVH = k.shape[2]
-        G = H // KVH
-        n = _block_rows(H, S)
-        scale = 1.0 / math.sqrt(hd)
-        dq, dk, dv = torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
-        for b in range(B):
-            kh, vh = k[b].transpose(0, 1), v[b].transpose(0, 1)
-            dkh, dvh = dk[b].transpose(0, 1), dv[b].transpose(0, 1)       # views
-            for s0 in range(0, S, n):
-                s1 = min(s0 + n, S)
-                m = s1 - s0
-                qb = _q_block(q, b, s0, s1, KVH, G)
-                dob = _q_block(do, b, s0, s1, KVH, G)
-                ob = _q_block(o, b, s0, s1, KVH, G)
-                l = lse[b, :, :, s0:s1].reshape(KVH, G * m)
-                p = _scores(qb, kh[:, :s1], num, scale, G, s0, s1).sub_(l[..., None]).exp_()
-                dvh[:, :s1] += torch.bmm(num.q(p).transpose(1, 2), num.q(dob))
-                dp = torch.bmm(num.q(dob), num.q(vh[:, :s1]).transpose(1, 2))
-                delta = (dob * ob).sum(-1, keepdim=True)
-                ds = dp.sub_(delta).mul_(p).mul_(scale)
-                del p, dp
-                dqb = torch.bmm(num.q(ds), num.q(kh[:, :s1]))             # (KVH, G*m, hd)
-                dq[b, s0:s1] = dqb.view(KVH, G, m, hd).permute(2, 0, 1, 3).reshape(m, H, hd)
-                dkh[:, :s1] += torch.bmm(num.q(ds).transpose(1, 2), num.q(qb))
-        return dq, dk, dv, None
-
-
-def _q_block(t, b, s0, s1, KVH, G):
-    """Rows s0:s1 of sequence b of a (B, S, H, hd) tensor as (KVH, G*m, hd),
-    query head h = kv head h // G."""
-    m, hd = s1 - s0, t.shape[-1]
-    return t[b, s0:s1].reshape(m, KVH, G, hd).permute(1, 2, 0, 3).reshape(KVH, G * m, hd)
-
-
-def _scores(qb, kh, num, scale, G, s0, s1):
-    """Scaled scores of a block of queries against keys 0:s1, with the keys
-    after each query masked to -inf."""
-    sc = torch.bmm(num.q(qb), num.q(kh).transpose(1, 2)).mul_(scale)     # (KVH, G*m, s1)
-    m = s1 - s0
-    future = torch.ones((m, m), dtype=torch.bool, device=sc.device).triu_(1)
-    sc.view(sc.shape[0], G, m, s1)[..., s0:s1].masked_fill_(future, float("-inf"))
-    return sc
-
-
-class _ChunkedCE(torch.autograd.Function):
-    """Mean cross entropy of logits x @ w against targets, a chunk of rows
-    at a time (logits float32, never whole)."""
-
-    @staticmethod
-    def forward(ctx, x, w, targets, num):
-        N, V = x.shape[0], w.shape[1]
-        rows = max(1, 2 ** 28 // V)
-        lse = torch.empty(N, dtype=torch.float32, device=x.device)
-        total = torch.zeros((), dtype=torch.float64, device=x.device)
-        for r0 in range(0, N, rows):
-            logits = num.q(x[r0:r0 + rows]) @ num.q(w)
-            lse[r0:r0 + rows] = torch.logsumexp(logits, dim=-1)
-            picked = logits.gather(1, targets[r0:r0 + rows, None])[:, 0]
-            total += (lse[r0:r0 + rows] - picked).sum(dtype=torch.float64)
-        ctx.save_for_backward(x, w, targets, lse)
-        ctx.num, ctx.rows = num, rows
-        return (total / N).float()
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w, targets, lse = ctx.saved_tensors
-        num, rows = ctx.num, ctx.rows
-        N = x.shape[0]
-        dx, dw = torch.empty_like(x), torch.zeros_like(w)
-        for r0 in range(0, N, rows):
-            xc = x[r0:r0 + rows]
-            p = (num.q(xc) @ num.q(w)).sub_(lse[r0:r0 + rows, None]).exp_()
-            p[torch.arange(p.shape[0], device=p.device), targets[r0:r0 + rows]] -= 1.0
-            p.mul_(g / N)
-            dx[r0:r0 + rows] = num.q(p) @ num.q(w).T
-            dw += num.q(xc).T @ num.q(p)
-        return dx, dw, None, None
-
-
-def rms_norm(x, w, eps):
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w
-
-
-def rope_tables(cfg: dict, seq_len: int, device):
-    hd = cfg["head_dim"]
-    inv = 1.0 / (cfg["rope_theta"] ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                                     device=device) / hd))
-    ang = torch.outer(torch.arange(seq_len, dtype=torch.float32, device=device), inv)
-    return ang.cos(), ang.sin()
-
-
-def rope(x, cos, sin):
-    """x (B, S, heads, hd): the halves of each head rotated by the angles."""
-    x1, x2 = x.chunk(2, dim=-1)
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-
-
-class Model:
-    """The configuration's forward and backward, a layer at a time."""
-
-    def __init__(self, cfg: dict, num: Numerics):
-        self.cfg, self.num = cfg, num
-        self.L = cfg["num_hidden_layers"]
-
-    def attention(self, p, x, B, S, cos, sin):
-        c, num = self.cfg, self.num
-        D, H, KVH, hd = c["hidden_size"], c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
-        h = rms_norm(x, p["attn_norm"], c["rms_norm_eps"])
-        q = num.mm(h, p["wq"].reshape(D, H * hd)).view(B, S, H, hd)
-        k = num.mm(h, p["wk"].reshape(D, KVH * hd)).view(B, S, KVH, hd)
-        v = num.mm(h, p["wv"].reshape(D, KVH * hd)).view(B, S, KVH, hd)
-        o = _CausalAttention.apply(rope(q, cos, sin), rope(k, cos, sin), v, num)
-        return x + num.mm(o.reshape(B * S, H * hd), p["wo"].reshape(H * hd, D))
-
-    def mlp(self, p, x):
-        c, num = self.cfg, self.num
-        h = rms_norm(x, p["mlp_norm"], c["rms_norm_eps"])
-        a = F.silu(num.mm(h, p["w_gate"])) * num.mm(h, p["w_up"])
-        return x + num.mm(a, p["w_down"])
-
-    def block(self, p, x, B, S, cos, sin):
-        return self.mlp(p, self.attention(p, x, B, S, cos, sin))
-
-    def loss_and_grads(self, params: dict, tokens: torch.Tensor):
-        """(mean loss, gradient tree) of one batch."""
-        c = self.cfg
-        B, S = tokens.shape[0], tokens.shape[1] - 1
-        inputs, targets = tokens[:, :-1].reshape(-1), tokens[:, 1:].reshape(-1)
-        cos, sin = rope_tables(c, S, tokens.device)
-        names = [lf.name.split(".", 1)[1] for lf in weights.leaves(c) if lf.layered]
-        blocks = params["blocks"]
-        grads = {"blocks": {n: torch.zeros_like(blocks[n]) for n in names}}
-        xs = []
-        with torch.no_grad():
-            x = params["embed"][inputs]
-            for l in range(self.L):
-                xs.append(x)
-                x = self.block({n: blocks[n][l] for n in names}, x, B, S, cos, sin)
-        with torch.enable_grad():
-            xf = x.detach().requires_grad_()
-            fn = params["final_norm"].detach().requires_grad_()
-            head = params["lm_head"].detach().requires_grad_()
-            ce = _ChunkedCE.apply(rms_norm(xf, fn, c["rms_norm_eps"]), head, targets, self.num)
-            ce.backward()
-        grads["final_norm"], grads["lm_head"] = fn.grad, head.grad
-        dy = xf.grad
-        del x, xf
-        for l in reversed(range(self.L)):
-            with torch.enable_grad():
-                xl = xs.pop().requires_grad_()
-                leaves = {n: blocks[n][l].detach().requires_grad_() for n in names}
-                y = self.block(leaves, xl, B, S, cos, sin)
-                torch.autograd.backward(y, dy)
-            for n in names:
-                grads["blocks"][n][l] = leaves[n].grad
-            dy = xl.grad
-            del xl, leaves, y
-        grads["embed"] = torch.zeros_like(params["embed"]).index_add_(0, inputs, dy)
-        return float(ce.detach()), grads
-
-
 def schedule(opt: dict, count: int) -> float:
     """optax.warmup_cosine_decay_schedule(0, peak, warmup, max(total,
     warmup + 1)) at ``count``."""
@@ -301,57 +102,189 @@ def _flat(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def run(cfg: dict, traffic: dict, seed: int, device, num: Numerics = None) -> dict:
+def run(cfg: dict, traffic: dict, seed: int, device, num: Numerics = None, ranks: int = 1,
+        pins: Optional[list] = None, workdir: Optional[str] = None) -> dict:
     """The reference's readings of the first ``check_steps`` steps: each
     step's loss, each leaf's gradient norm and a seeded sample of its
     elements in the first step (before clipping), and each leaf's change
-    after the last, its norm and its elements at the same positions."""
+    after the last, its norm and its elements at the same positions.
+
+    ``ranks`` > 1: worked out over that many cards of ``device``'s type in
+    processes of their own, which leave their result in ``workdir``.
+    ``pins``: each check step's pins, one entry a row (the family's
+    ``pins``), handed to the model with the rows they belong to."""
     num = num or Numerics()
+    if ranks == 1:
+        return steps(cfg, traffic, seed, device, num, pins)
+    return _spread(cfg, traffic, seed, torch.device(device).type, num, ranks, pins, workdir)
+
+
+def steps(cfg: dict, traffic: dict, seed: int, device, num: Numerics, pins: Optional[list] = None,
+          rank: int = 0, world: int = 1) -> Optional[dict]:
+    """``run``'s readings, worked out in this process, or as rank ``rank``
+    of ``world`` ranks of the default process group: the readings on rank
+    0, None on the others."""
     opt = traffic["optimizer"]
     b1, b2, eps = opt.get("b1", 0.9), opt.get("b2", 0.95), 1e-8
     wd, clip = opt.get("weight_decay", 0.1), opt.get("grad_clip", 1.0)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
+        layered = {lf.name: lf.shape[0] if lf.layered else None for lf in weights.leaves(cfg)}
         params = weights.make(cfg, seed, device)
         flat = _flat(params)
-        model = Model(cfg, num)
+        model = registry.family(cfg["program"]["family"]).Model(cfg, num)
+        # what one rank updates: whole leaves in one process, layers over ranks
+        units = {n: [None] if world == 1 or layered[n] is None else list(range(layered[n]))
+                 for n in flat}
         moments = None
         out = {"losses": []}
         for step in range(1, traffic["check_steps"] + 1):
             tokens = traffic_gen.batch(traffic, cfg["vocab_size"], seed, step, device)["tokens"]
-            loss, grads = model.loss_and_grads(params, tokens)
+            step_pins = pins[step - 1] if pins else None
+            if world == 1:
+                loss, grads = model.loss_and_grads(params, tokens, pins=step_pins)
+            else:
+                loss, grads = _share(model, params, tokens, step_pins, rank, world)
             g = _flat(grads)
             norms = {n: float(torch.linalg.vector_norm(t)) for n, t in g.items()}
             gnorm = math.sqrt(sum(v * v for v in norms.values()))
             out["losses"].append(loss)
-            if step == 1:
+            if step == 1 and rank == 0:
                 out["grad_norms"] = norms
                 out["grad_sample"] = weights.sample(cfg, seed, grads)
             factor = 1.0 if gnorm < clip else clip / gnorm
             lr = schedule(opt, step - 1)
             bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
             new_moments = {}
+            i = 0
             for n, p in flat.items():
-                gc = g.pop(n).mul_(factor)
-                if moments is None:
-                    mu, nu = (1 - b1) * gc, (1 - b2) * gc * gc
-                else:
-                    mu, nu = (t.to(device) for t in moments.pop(n))
-                    mu.mul_(b1).add_((1 - b1) * gc)
-                    nu.mul_(b2).add_((1 - b2) * gc * gc)
-                del gc
-                u = (mu / bc1) / ((nu / bc2).sqrt_() + eps) + wd * p
-                p.sub_(lr * u)
-                del u
-                if step < traffic["check_steps"]:
-                    new_moments[n] = (mu.cpu(), nu.cpu())
-                del mu, nu
+                gl = g.pop(n)
+                for l in units[n]:
+                    i += 1
+                    if (i - 1) % world != rank:
+                        continue
+                    pu = p if l is None else p[l]
+                    gc = (gl if l is None else gl[l]).mul_(factor)
+                    if moments is None:
+                        mu, nu = (1 - b1) * gc, (1 - b2) * gc * gc
+                    else:
+                        mu, nu = (t.to(device) for t in moments.pop((n, l)))
+                        mu.mul_(b1).add_((1 - b1) * gc)
+                        nu.mul_(b2).add_((1 - b2) * gc * gc)
+                    del gc
+                    u = (mu / bc1) / ((nu / bc2).sqrt_() + eps) + wd * pu
+                    pu.sub_(lr * u)
+                    del u
+                    if step < traffic["check_steps"]:
+                        new_moments[(n, l)] = (mu.cpu(), nu.cpu())
+                    del mu, nu
+                del gl
             del grads, g
             moments = new_moments
+            if world > 1:       # every rank's updated layers to every rank
+                i = 0
+                for n, p in flat.items():
+                    for l in units[n]:
+                        dist.broadcast(p if l is None else p[l], src=i % world)
+                        i += 1
         del moments
+        if rank != 0:
+            return None
         out["update_norms"], out["update_sample"] = weights.change(cfg, seed, params)
         return out
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
+
+def _share(model, params: dict, tokens: torch.Tensor, pins: Optional[list], rank: int,
+           world: int):
+    """(the batch's mean loss, the gradient tree of it) summed over the
+    ranks, this rank taking its block of rows one sequence at a time."""
+    B = tokens.shape[0]
+    if B % world:
+        raise ValueError(f"a batch of {B} rows does not split over {world} ranks")
+    grads, total = None, 0.0
+    for b in range(rank * B // world, (rank + 1) * B // world):
+        loss, grads = model.loss_and_grads(params, tokens[b:b + 1], grads, scale=1.0 / B,
+                                           pins=pins[b:b + 1] if pins else None)
+        total += loss
+    for t in _flat(grads).values():
+        dist.all_reduce(t)
+    summed = torch.tensor(total, dtype=torch.float64, device=tokens.device)
+    dist.all_reduce(summed)
+    return float(summed) / B, grads
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spread(cfg, traffic, seed, device_type: str, num: Numerics, ranks: int, pins, workdir):
+    """``steps`` over ``ranks`` processes of their own, one card each
+    (gloo on the CPU), started as ``python3 -m gpubench.reference <job>
+    <rank>``; a rank that fails ends the others."""
+    path = os.path.join(workdir, "reference.json")
+    job = {"cfg": cfg, "traffic": traffic, "seed": seed, "device_type": device_type,
+           "fp8": num.fp8, "pins": pins, "port": free_port(), "world": ranks, "out": path}
+    job_path = os.path.join(workdir, "reference-job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    run_ranks([[sys.executable, "-m", f"{__package__}.reference", job_path, str(r)]
+               for r in range(ranks)], stdout=sys.stderr)
+    with open(path) as f:
+        return json.load(f)
+
+
+def run_ranks(commands: List[List[str]], stdout=None) -> None:
+    """Run one process a command (the ranks of a process group, their
+    standard output to ``stdout``, this one's by default) and wait for them
+    all; where one fails, end the others, which would wait on it, and raise."""
+    procs = [subprocess.Popen(c, stdout=stdout) for c in commands]
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                raise RuntimeError(f"a rank failed: exit codes {codes}")
+            if all(c == 0 for c in codes):
+                return
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def _rank_main(job: dict, rank: int) -> int:
+    """One rank of ``_spread``: rank 0 writes the readings to ``job["out"]``.
+    Returns 3, with the readings unwritten, where this process has loaded a
+    module that no run may load, else 0."""
+    if job["device_type"] == "cuda":
+        torch.cuda.set_device(rank)
+        device, backend = torch.device("cuda", rank), "nccl"
+    else:
+        device, backend = torch.device("cpu"), "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{job['port']}", rank=rank,
+                            world_size=job["world"])
+    try:
+        out = steps(job["cfg"], job["traffic"], job["seed"], device, Numerics(job["fp8"]),
+                    job["pins"], rank, job["world"])
+    finally:
+        dist.destroy_process_group()
+    banned = banned_loaded()
+    if banned:
+        print(f"gpubench.reference rank {rank}: modules that no run may load were loaded: "
+              f"{banned}", file=sys.stderr)
+        return 3
+    if rank == 0:
+        with open(job["out"], "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    with open(sys.argv[1]) as f:
+        sys.exit(_rank_main(json.load(f), int(sys.argv[2])))

@@ -1,8 +1,9 @@
-"""Find configurations, cells, traffic mixes, limits and metric readers by
-name, and the metrics ``BENCHMARK.json`` asks of a cell."""
+"""Find configurations, cells, traffic mixes, limits, model families and
+metric readers by name, and the metrics ``BENCHMARK.json`` asks of a cell."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
@@ -42,9 +43,9 @@ def limits(name: str) -> Dict[str, float]:
 
 
 def names(kind: str) -> List[str]:
-    """Every name of ``kind`` (configs, workloads, traffic, limits, metrics)
-    that has a file."""
-    ext = ".py" if kind == "metrics" else ".json"
+    """Every name of ``kind`` (configs, workloads, traffic, limits, families,
+    metrics) that has a file."""
+    ext = ".py" if kind in ("families", "metrics") else ".json"
     d = os.path.join(PKG_DIR, kind)
     return sorted(f[:-len(ext)] for f in os.listdir(d)
                   if f.endswith(ext) and not f.startswith("_"))
@@ -65,6 +66,16 @@ def metric(name: str):
         spec.loader.exec_module(module)
         sys.modules[key] = module
     return sys.modules[key]
+
+
+def family(name: str):
+    """The module of model family ``name``, ``families/<name>.py`` (a name
+    is a Python identifier)."""
+    if not name.isidentifier():
+        raise ValueError(f"bad family name {name!r}")
+    if not os.path.exists(os.path.join(PKG_DIR, "families", f"{name}.py")):
+        raise FileNotFoundError(f"no model family named {name!r}")
+    return importlib.import_module(f"{__package__}.families.{name}")
 
 
 def benchmark() -> Dict[str, Any]:

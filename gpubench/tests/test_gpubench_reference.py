@@ -1,6 +1,8 @@
 """The float32 reference against plain runs at tiny sizes: a whole-batch
 autograd run of the same model written out flat, and the program's own
-float32 paths (einsum attention, full-logit CE) through its train step."""
+float32 paths (einsum attention, full-logit CE) through its train step.
+The Llama family's reference (``families/llama.py``) against the same,
+and against what it read before it moved there."""
 
 import math
 
@@ -9,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from gpubench import check, program, reference, traffic as traffic_gen, weights
+from gpubench.families import llama
 from gpubench.tests import tiny
 
 
@@ -20,22 +23,22 @@ def naive_loss(cfg, params, tokens):
                                       "num_key_value_heads", "head_dim"))
     G, eps = H // KVH, cfg["rms_norm_eps"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    cos, sin = reference.rope_tables(cfg, S, tokens.device)
+    cos, sin = llama.rope_tables(cfg, S, tokens.device)
     x = params["embed"][inputs]                                   # (B, S, D)
     mask = torch.ones(S, S, dtype=torch.bool).tril()
     bl = params["blocks"]
     for l in range(cfg["num_hidden_layers"]):
-        h = reference.rms_norm(x, bl["attn_norm"][l], eps)
-        q = reference.rope(torch.einsum("bsd,dhk->bshk", h, bl["wq"][l]), cos, sin)
-        k = reference.rope(torch.einsum("bsd,dhk->bshk", h, bl["wk"][l]), cos, sin)
+        h = llama.rms_norm(x, bl["attn_norm"][l], eps)
+        q = llama.rope(torch.einsum("bsd,dhk->bshk", h, bl["wq"][l]), cos, sin)
+        k = llama.rope(torch.einsum("bsd,dhk->bshk", h, bl["wk"][l]), cos, sin)
         v = torch.einsum("bsd,dhk->bshk", h, bl["wv"][l])
         k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
         s = torch.einsum("bqhk,bthk->bhqt", q, k) / math.sqrt(hd)
         p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
         x = x + torch.einsum("bhqt,bthk,hkd->bqd", p, v, bl["wo"][l])
-        h = reference.rms_norm(x, bl["mlp_norm"][l], eps)
+        h = llama.rms_norm(x, bl["mlp_norm"][l], eps)
         x = x + (F.silu(h @ bl["w_gate"][l]) * (h @ bl["w_up"][l])) @ bl["w_down"][l]
-    h = reference.rms_norm(x, params["final_norm"], eps)
+    h = llama.rms_norm(x, params["final_norm"], eps)
     ce = F.cross_entropy((h @ params["lm_head"]).reshape(B * S, -1), targets.reshape(-1))
     return ce
 
@@ -53,7 +56,7 @@ def test_reference_gradients_equal_a_whole_graph_run():
     dev = torch.device("cpu")
     tokens = traffic_gen.batch(tiny.TRAFFIC, cfg["vocab_size"], 5, 1, dev)["tokens"]
     params = weights.make(cfg, 5, dev)
-    loss, grads = reference.Model(cfg, reference.Numerics()).loss_and_grads(params, tokens)
+    loss, grads = llama.Model(cfg, reference.Numerics()).loss_and_grads(params, tokens)
     leaves = _flat(params)
     for t in leaves.values():
         t.requires_grad_(True)

@@ -3,6 +3,7 @@ BENCHMARK.json is found by name in its own file, and the files agree with
 BENCHMARK.json and with the contract's shapes."""
 
 import json
+import math
 import os
 import re
 
@@ -32,7 +33,10 @@ def test_config_found_by_name(entry):
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda e: e["name"])
 def test_cell_found_by_name(entry):
     cell = registry.workload(entry["name"])
+    mesh = cell.pop("mesh", None)      # the card layout lives in the cell's file alone
     assert {k: entry[k] for k in ("config", "traffic", "chips", "why")} == cell
+    assert entry["chips"] == (math.prod(mesh.values()) if mesh else 1)
+    assert mesh is None or set(mesh) <= {"data", "fsdp", "expert", "seq", "model"}
     registry.config(cell["config"])
     traffic = registry.traffic(cell["traffic"])
     assert traffic["kind"] == "train" and traffic["check_steps"] >= 2

@@ -59,7 +59,7 @@ def test_readers_on_the_summary(tmp_path):
     run = {"trace": s, "window": {"steps": 2, "seconds": 1.0, "tokens": 10, "peak_bytes": 0},
            "peaks": {"bf16_flops": 1e12, "hbm_bytes": 1e12},
            "config": {"num_attention_heads": 2, "head_dim": 4, "num_key_value_heads": 1},
-           "traffic": {"batch": 1, "seq_len": 8}}
+           "traffic": {"batch": 1, "seq_len": 8}, "batch_per_rank": 1, "chips": 1}
     assert registry.metric("launches_per_step").read(run) == 2.0
     assert registry.metric("device_idle_pct").read(run) == pytest.approx(61.0)
     # 390 us of kernels, 50 of GEMM, 300 under the op: 40 us over 2 steps
@@ -74,3 +74,31 @@ def test_readers_on_the_summary(tmp_path):
     run["trace"] = None
     assert registry.metric("attn_roofline_pct").read(run) is None
 
+
+
+def test_nccl_time_that_compute_leaves_bare(tmp_path):
+    """An NCCL kernel that overlaps compute only in part: its bare time is
+    what the other kernels leave uncovered, and the readers see it."""
+    events = [
+        _ev("user_annotation", "gpubench.window", 0, 1000),
+        _ev("kernel", "nvjet_tst_128x256_gemm", 100, 200, tid=7),
+        _ev("kernel", "ncclDevKernel_AllGather_RING_LL", 250, 150, tid=8),     # 300-400 bare
+        _ev("kernel", "vectorized_elementwise_kernel", 350, 20, tid=7),        # covers 350-370
+        _ev("kernel", "ncclDevKernel_ReduceScatter_Sum_f32_RING_LL", 500, 40, tid=8),
+    ]
+    path = tmp_path / "n.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    s = trace.summarize(str(path), "gpubench.window", [])
+    us = 1e-6
+    assert s["nccl_kernel_s"] == pytest.approx(190 * us)
+    assert s["nccl_exposed_s"] == pytest.approx((80 + 40) * us)
+    assert [n for n, _ in s["nccl_ops"]] == ["ncclDevKernel_AllGather_RING_LL",
+                                             "ncclDevKernel_ReduceScatter_Sum_f32_RING_LL"]
+    assert [d for _, d in s["nccl_ops"]] == pytest.approx([150 * us, 40 * us])
+    run = {"trace": s, "window": {"steps": 2}}
+    assert registry.metric("nccl_exposed_ms_per_step").read(run) == pytest.approx(0.06)
+    # NCCL's kernels are not elementwise work
+    assert registry.metric("elementwise_ms_per_step").read(run) == pytest.approx(0.01)
+    s_bare = trace.summarize(_trace(tmp_path), "gpubench.window", ["_FlashAttention"])
+    assert s_bare["nccl_kernel_s"] == 0 and s_bare["nccl_exposed_s"] == 0 and s_bare["nccl_ops"] == []
+    assert registry.metric("nccl_exposed_ms_per_step").read({"trace": s_bare}) is None

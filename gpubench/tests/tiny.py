@@ -20,6 +20,10 @@ TRAFFIC = {"kind": "train", "batch": 2, "seq_len": 64, "tokens": "uniform", "che
            "optimizer": {"learning_rate": 3e-4, "warmup_steps": 0, "total_steps": 10000,
                          "weight_decay": 0.1, "grad_clip": 1.0, "b1": 0.9, "b2": 0.95}}
 
+# the mesh cell's: 2 rows a rank over fsdp 2 (the fused CE takes 128 rows)
+TRAFFIC_B4 = {**TRAFFIC, "batch": 4}
+MESH = {"fsdp": 2}
+
 # between the program's readings and the float8 control's at these sizes
 # (seeds 21-26: grad_norm_gap <= 2.6e-3 against >= 1.5e-2; grad_sample_err
 # <= 0.0188 against >= 0.198; update_sample_err <= 0.0895 against >= 0.365,
@@ -36,7 +40,8 @@ def f32(cfg: dict) -> dict:
 
 def copy_with_tiny_cells(dest: str) -> str:
     """A copy of the benchmark (``gpubench/`` and ``BENCHMARK.json``) at
-    ``dest`` with a tiny cell, ``tiny.llama``, and a
+    ``dest`` with two tiny cells, ``tiny.llama`` and ``tiny.llama.fsdp2``
+    (two ranks of a mesh, over gloo), and a
     metric ``tiny_steps`` (with a probe: the state's steps after the window)
     added: new files and new entries of ``BENCHMARK.json`` only."""
     shutil.copytree(gpubench.PKG_DIR, os.path.join(dest, "gpubench"),
@@ -53,6 +58,11 @@ def copy_with_tiny_cells(dest: str) -> str:
     put("workloads", "tiny.llama", {"config": LLAMA["name"], "traffic": "train.b2.s64",
                                     "chips": 1, "why": "a test cell"})
     put("limits", "tiny.llama", LIMITS)
+    put("traffic", "train.b4.s64", TRAFFIC_B4)
+    mesh_cell = {"config": LLAMA["name"], "traffic": "train.b4.s64", "chips": 2, "mesh": MESH,
+                 "why": "a test cell over two ranks"}
+    put("workloads", "tiny.llama.fsdp2", mesh_cell)
+    put("limits", "tiny.llama.fsdp2", LIMITS)
     with open(os.path.join(pkg, "metrics", "tiny_steps.py"), "w") as f:
         f.write('"""Steps the train state has taken after the window, read in the worker\n'
                 '(a test metric with a probe)."""\n\n\n'
@@ -62,9 +72,10 @@ def copy_with_tiny_cells(dest: str) -> str:
     path = os.path.join(dest, "BENCHMARK.json")
     with open(path) as f:
         bench = json.load(f)
-    cells = ["tiny.llama"]
+    cells = ["tiny.llama", "tiny.llama.fsdp2"]
     bench["workloads"].append({"name": "tiny.llama", "config": LLAMA["name"],
                                "traffic": "train.b2.s64", "chips": 1, "why": "a test cell"})
+    bench["workloads"].append({"name": "tiny.llama.fsdp2", **mesh_cell})
     bench["per_layer"].append({"name": "tiny_steps", "unit": "count", "better": "higher",
                                "source": "host_clock", "layer": "train step",
                                "moves": "train_tokens_per_s", "workloads": cells})

@@ -13,6 +13,10 @@ holds the launch. The summary gives:
 - ``kernel_s``, ``launches``; ``gemm_s`` (kernels named as GEMMs, not under
   an op); ``ops``: for each op its calls and backward calls in the window
   and the device seconds of the kernels under each;
+- ``nccl_kernel_s``: NCCL's kernels (by name); ``nccl_exposed_s``: the
+  time in which an NCCL kernel runs on the device and no other kernel
+  does, the collectives' time that compute does not hide; ``nccl_ops``:
+  each NCCL kernel name with its device seconds, the most first;
 - ``device_ops``: the ten kernel names with the most device time;
 - ``idle_gaps``: the ten longest spans with nothing on the device, each
   named by the host op that launched the kernel ending it.
@@ -35,6 +39,39 @@ TOP = 10
 def is_gemm(name: str) -> bool:
     low = name.lower()
     return any(m in low for m in GEMM_MARKS)
+
+
+def is_nccl(name: str) -> bool:
+    return "nccl" in name.lower()
+
+
+def union(spans: List[tuple]) -> List[List[float]]:
+    """The union of (start, end) spans as sorted disjoint [start, end]."""
+    out: List[List[float]] = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _uncovered(spans: List[List[float]], cover: List[List[float]]) -> float:
+    """The length of ``spans`` that ``cover`` leaves bare (both unions)."""
+    bare, j = 0.0, 0
+    for a, b in spans:
+        t = a
+        while j < len(cover) and cover[j][1] <= t:
+            j += 1
+        k = j
+        while k < len(cover) and cover[k][0] < b:
+            if cover[k][0] > t:
+                bare += cover[k][0] - t
+            t = max(t, cover[k][1])
+            k += 1
+        if t < b:
+            bare += b - t
+    return bare
 
 
 class _Spans:
@@ -90,6 +127,7 @@ def summarize(path: str, window: str, ops: List[str]) -> Dict[str, object]:
     names = defaultdict(float)
     gemm_s = kernel_s = 0.0
     n_kernels = 0
+    nccl, others = [], []
     first_of_gap = []
     busy, end = 0.0, w0
     for e in device:
@@ -103,6 +141,7 @@ def summarize(path: str, window: str, ops: List[str]) -> Dict[str, object]:
         n_kernels += 1
         kernel_s += e["dur"]
         names[e["name"]] += e["dur"]
+        (nccl if is_nccl(e["name"]) else others).append((s, t))
         tid, ts, how = origin(e)
         linked[how] += 1
         span = tracked[tid].innermost(ts) if tid in tracked else None
@@ -132,9 +171,13 @@ def summarize(path: str, window: str, ops: List[str]) -> Dict[str, object]:
     return {
         "window_s": (w1 - w0) * us, "busy_s": busy * us, "kernel_s": kernel_s * us,
         "gemm_s": gemm_s * us, "launches": n_kernels, "linked": dict(linked),
+        "nccl_kernel_s": sum(b - a for a, b in nccl) * us,
+        "nccl_exposed_s": _uncovered(union(nccl), union(others)) * us,
         "ops": {op: {"calls": calls[op], "kernel_s": op_s[op] * us,
                      "backward_calls": calls[op + "Backward"],
                      "backward_kernel_s": op_s[op + "Backward"] * us} for op in ops},
+        "nccl_ops": [[n, d * us] for n, d in sorted(names.items(), key=lambda x: -x[1])
+                     if is_nccl(n)],
         "device_ops": [[n, d * us] for n, d in sorted(names.items(), key=lambda x: -x[1])[:TOP]],
         "idle_gaps": [[gap_name(k), g * us] for g, k in sorted(first_of_gap, key=lambda x: -x[0])[:TOP]],
     }

@@ -8,9 +8,14 @@ alone (``layer_slice``): the train loop measures the parameters' change
 against the start that way (``change``), and the reference starts from
 the same tree.
 
-The tree has the layout the program takes (stacked layers under the
-reference package's key names): that layout is its interface, like the
-shape of a batch. Parameters are float32 master weights.
+The leaves, their shapes and the tree's layout are the family's
+(``families/<family>.py`` ``leaves``): the layout the program takes is its
+interface, like the shape of a batch. Parameters are float32 master
+weights.
+
+A rank of a cell laid over a mesh holds a ``Part`` of each leaf and
+reads only that part (``sample``, ``change_parts``); summed over the
+ranks, the parts' readings are the whole tree's.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import registry
+
 
 class Leaf(NamedTuple):
     name: str                   # path in the tree, "blocks.wq"
@@ -29,24 +36,21 @@ class Leaf(NamedTuple):
     layered: bool
 
 
+class Part(NamedTuple):
+    """The part of a leaf one rank holds: ``cut``, one slice of each
+    dimension of the whole leaf, and ``counts``: whether this rank's copy is
+    the one read when the ranks' readings are summed (of the ranks holding
+    the same part, one counts)."""
+    cut: Tuple[slice, ...]
+    counts: bool
+
+
+Parts = Optional[Dict[str, Part]]   # by leaf name; None: the whole tree, counted
+
+
 def leaves(cfg: dict) -> List[Leaf]:
     """The leaves of a configuration's tree, in the tree's order."""
-    D, V = cfg["hidden_size"], cfg["vocab_size"]
-    H, KVH = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd, F, L = cfg["head_dim"], cfg["intermediate_size"], cfg["num_hidden_layers"]
-    out = [
-        Leaf("embed", (V, D), D, False),
-        Leaf("blocks.attn_norm", (L, D), None, True),
-        Leaf("blocks.wq", (L, D, H, hd), D, True),
-        Leaf("blocks.wk", (L, D, KVH, hd), D, True),
-        Leaf("blocks.wv", (L, D, KVH, hd), D, True),
-        Leaf("blocks.wo", (L, H, hd, D), H * hd, True),
-        Leaf("blocks.mlp_norm", (L, D), None, True),
-        Leaf("blocks.w_gate", (L, D, F), D, True),
-        Leaf("blocks.w_up", (L, D, F), D, True),
-        Leaf("blocks.w_down", (L, F, D), F, True),
-    ]
-    return out + [Leaf("final_norm", (D,), None, False), Leaf("lm_head", (D, V), D, False)]
+    return registry.family(cfg["program"]["family"]).leaves(cfg)
 
 
 def mix(*parts) -> int:
@@ -71,10 +75,13 @@ def layer_slice(cfg: dict, seed: int, leaf: Leaf, layer: int,
                  layer if leaf.layered else 0)
 
 
+def _whole(leaf: Leaf) -> Tuple[slice, ...]:
+    return tuple(slice(0, n) for n in leaf.shape)
+
+
 def make(cfg: dict, seed: int, device: torch.device) -> Dict[str, object]:
-    """The whole tree, float32 on ``device``: {"embed", "blocks": {...},
-    "final_norm", "lm_head"}."""
-    tree: Dict[str, object] = {"blocks": {}}
+    """The whole tree, float32 on ``device``, in the family's layout."""
+    tree: Dict[str, object] = {}
     for leaf in leaves(cfg):
         t = torch.empty(leaf.shape, dtype=torch.float32, device=device)
         if leaf.layered:
@@ -86,25 +93,55 @@ def make(cfg: dict, seed: int, device: torch.device) -> Dict[str, object]:
     return tree
 
 
-def change(cfg: dict, seed: int, params: dict) -> Tuple[Dict[str, float], Dict[str, List[float]]]:
+def _locate(pos: torch.Tensor, shape: Tuple[int, ...], cut: Tuple[slice, ...]):
+    """(held, local): which flat positions ``pos`` of a whole leaf of
+    ``shape`` lie in ``cut``, and each one's flat position in the part."""
+    held = torch.ones_like(pos, dtype=torch.bool)
+    local = torch.zeros_like(pos)
+    rest = pos.clone()
+    stride = 1
+    for n, s in zip(reversed(shape), reversed(cut)):
+        coord = rest % n
+        rest //= n
+        held &= (coord >= s.start) & (coord < s.stop)
+        local += (coord - s.start) * stride
+        stride *= s.stop - s.start
+    return held, local
+
+
+def change_parts(cfg: dict, seed: int, params: dict, parts: Parts = None
+                 ) -> Tuple[Dict[str, float], Dict[str, List[float]]]:
     """Each leaf's change from the start (a tree of ``params``' layout), p_0
-    made again from the seed a layer at a time: (its norm ||p - p_0||, its
-    elements at the positions ``sample`` reads)."""
-    norms, picked = {}, {}
+    made again from the seed a layer at a time: (the sum of squares of
+    p - p_0, its elements at the positions ``sample`` reads). With ``parts``
+    the tree holds this rank's parts and both are this rank's share of the
+    sum over the ranks: 0 and 0.0 where it holds nothing or is not counted."""
+    sq_sums, picked = {}, {}
     for leaf in leaves(cfg):
         p = get(params, leaf.name).detach()
-        idx = positions(seed, leaf, p.numel()).to(p.device)
-        layers = leaf.shape[0] if leaf.layered else 1
-        per = p.numel() // layers
-        sq, vals = 0.0, torch.empty(idx.numel(), dtype=torch.float64, device=p.device)
-        for l in range(layers):
-            d = ((p[l] if leaf.layered else p).float() - layer_slice(cfg, seed, leaf, l, p.device))
+        cut, counts = (_whole(leaf), True) if parts is None else parts[leaf.name]
+        held, local = _locate(positions(seed, leaf, math.prod(leaf.shape)), leaf.shape, cut)
+        idx, held = local.to(p.device), held.to(p.device) & counts
+        layers = range(cut[0].start, cut[0].stop) if leaf.layered else range(1)
+        per = p.numel() // len(layers)
+        sq, vals = 0.0, torch.zeros(idx.numel(), dtype=torch.float64, device=p.device)
+        for i, l in enumerate(layers):
+            whole = layer_slice(cfg, seed, leaf, l, p.device)
+            d = ((p[i] if leaf.layered else p).float() - whole[cut[1:] if leaf.layered else cut])
             d = d.reshape(-1)
-            sq += float(torch.linalg.vector_norm(d)) ** 2
-            here = (idx // per) == l
+            if counts:
+                sq += float(torch.linalg.vector_norm(d)) ** 2
+            here = held & ((idx // per) == i)
             vals[here] = d[idx[here] % per].double()
-        norms[leaf.name], picked[leaf.name] = math.sqrt(sq), vals.tolist()
-    return norms, picked
+        sq_sums[leaf.name], picked[leaf.name] = sq, vals.tolist()
+    return sq_sums, picked
+
+
+def change(cfg: dict, seed: int, params: dict) -> Tuple[Dict[str, float], Dict[str, List[float]]]:
+    """Each leaf's change from the start: (its norm ||p - p_0||, its
+    elements at the positions ``sample`` reads)."""
+    sq, picked = change_parts(cfg, seed, params)
+    return {n: math.sqrt(v) for n, v in sq.items()}, picked
 
 
 SAMPLE = 16384   # elements of a leaf that ``sample`` reads
@@ -116,13 +153,26 @@ def positions(seed: int, leaf: Leaf, numel: int) -> torch.Tensor:
     return torch.randint(0, numel, (min(SAMPLE, numel),), generator=g)
 
 
-def sample(cfg: dict, seed: int, tree: dict, scale: float = 1.0) -> Dict[str, List[float]]:
+def sample(cfg: dict, seed: int, tree: dict, scale: float = 1.0,
+           parts: Parts = None) -> Dict[str, List[float]]:
     """Each leaf's elements at SAMPLE positions drawn from (seed, leaf),
-    times ``scale``: the same positions on both sides of a comparison."""
+    times ``scale``: the same positions on both sides of a comparison. With
+    ``parts`` the tree holds this rank's parts and an element it does not
+    hold, or holds uncounted, reads 0.0 (the ranks' samples sum to the
+    whole tree's)."""
     out = {}
     for leaf in leaves(cfg):
         t = get(tree, leaf.name).detach().reshape(-1)
-        out[leaf.name] = (t[positions(seed, leaf, t.numel()).to(t.device)].double() * scale).tolist()
+        pos = positions(seed, leaf, math.prod(leaf.shape))
+        if parts is None:
+            out[leaf.name] = (t[pos.to(t.device)].double() * scale).tolist()
+            continue
+        cut, counts = parts[leaf.name]
+        held, local = _locate(pos, leaf.shape, cut)
+        vals = torch.zeros(pos.numel(), dtype=torch.float64)
+        if counts:
+            vals[held] = t[local[held].to(t.device)].double().cpu() * scale
+        out[leaf.name] = vals.tolist()
     return out
 
 
